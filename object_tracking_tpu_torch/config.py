@@ -1,0 +1,47 @@
+"""Constants and config fields of the joint detect+track serving path.
+
+The port keeps its own copy of what it reads from the JAX package's
+`object_tracking_tpu/config.py` (anchors, the track gate, the MOT17 label
+set, and the `DetectorConfig` / `JointConfig` fields this slice uses), so
+that importing it never imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+# Anchor priors (grid-cell units) — YOLOv2 COCO anchors.
+YOLOV2_ANCHORS: Tuple[float, ...] = (
+    0.57273, 0.677385, 1.87446, 2.06253, 3.33843,
+    5.47434, 7.88282, 3.52778, 9.77052, 9.16828,
+)
+
+# Track-association IoU gate shared by every identity-assignment layer
+# (ops/matching.assign_tracks, TrackManager, inference.JointPredictor).
+# NOT the NMS threshold and NOT the eval match threshold.
+TRACK_GATE_IOU: float = 0.3
+
+LABELS_MOT17: Tuple[str, ...] = tuple(str(i) for i in range(1, 13))
+
+
+@dataclass
+class DetectorConfig:
+    """YOLOv2 detector fields read by the serving path (its label set is
+    JointConfig.labels)."""
+    num_anchors: int = 5
+    anchors: Tuple[float, ...] = YOLOV2_ANCHORS
+    obj_threshold: float = 0.5
+    nms_threshold: float = 0.45
+    # Backbone channel-width divisor (floor 4 channels); 1 = full width.
+    width_div: int = 1
+
+
+@dataclass
+class JointConfig:
+    """Joint detect+track model fields read by the serving path."""
+    labels: Tuple[str, ...] = LABELS_MOT17
+    sequence_length: int = 4
+    convlstm_features: int = 512
+    # 'bfloat16' activations (parameters stay float32) or 'float32'.
+    compute_dtype: str = 'float32'

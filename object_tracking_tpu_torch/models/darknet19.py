@@ -1,0 +1,142 @@
+"""Darknet-19 / YOLOv2 detector as a PyTorch module.
+
+Port of `object_tracking_tpu/models/darknet19.py`: 22 conv+BN+LeakyReLU(0.1)
+blocks with 5 max-pools, a space-to-depth skip from block 13, and a 1x1 head
+conv reshaped to (H/32, W/32, A, 5+C).
+
+- NCHW inside; images come in as (B, H, W, 3) and netout / conv_feat leave
+  as (B, H/32, W/32, A, 5+C) / (B, H/32, W/32, 1024), the JAX layouts.
+- `dtype` is the activation type (float32 or bfloat16); parameters stay
+  float32 and are cast at each conv, and the two outputs are float32.
+- BatchNorm uses flax's epsilon (1e-3). `train=True` normalises with the
+  batch statistics and writes no running statistics (the serving path's
+  bn_mode='batch'); `train=False` uses the running statistics.
+- `space_to_depth_2x` orders channels (di, dj, c), as tf.space_to_depth
+  does — not `F.pixel_unshuffle`'s (c, di, dj).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def space_to_depth_2x(x: torch.Tensor) -> torch.Tensor:
+    """tf.space_to_depth(block_size=2) on NCHW: output channel
+    (di * 2 + dj) * C + c takes input channel c at offset (di, dj)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2)
+    x = x.permute(0, 3, 5, 1, 2, 4)             # (b, di, dj, c, h/2, w/2)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
+
+
+class BatchNorm(nn.Module):
+    """Inference-time BatchNorm with flax's epsilon. It never updates its
+    running statistics (training, with flax's momentum 0.99 = torch's
+    0.01, comes with the training port)."""
+
+    def __init__(self, features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer('running_mean', torch.zeros(features))
+        self.register_buffer('running_var', torch.ones(features))
+
+    def forward(self, x: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+        if batch_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias,
+                                training=True, eps=self.eps)
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=self.eps)
+
+
+def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
+    """`layer` applied in x's dtype ('SAME' padding, stride 1); the
+    float32 parameters are cast, never stored in the compute type."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias,
+                    padding=layer.kernel_size[0] // 2)
+
+
+class Darknet19(nn.Module):
+    """YOLOv2 backbone + detection head.
+
+    Args:
+      num_classes: size of the class set (defines head width).
+      num_anchors: anchor boxes per cell.
+      dtype: activation dtype (torch.float32 or torch.bfloat16).
+      width_div: divide every backbone width by this (floor 4 channels).
+    """
+
+    # (conv index, features, kernel) with pools after 1, 2, 5, 8, 13
+    PLAN: Tuple[Tuple[int, int, int], ...] = (
+        (1, 32, 3), (2, 64, 3), (3, 128, 3), (4, 64, 1), (5, 128, 3),
+        (6, 256, 3), (7, 128, 1), (8, 256, 3), (9, 512, 3), (10, 256, 1),
+        (11, 512, 3), (12, 256, 1), (13, 512, 3), (14, 1024, 3),
+        (15, 512, 1), (16, 1024, 3), (17, 512, 1), (18, 1024, 3),
+        (19, 1024, 3), (20, 1024, 3),
+    )
+    POOL_AFTER = frozenset((1, 2, 5, 8, 13))
+
+    def __init__(self, num_classes: int = 80, num_anchors: int = 5,
+                 dtype: torch.dtype = torch.float32, width_div: int = 1):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.dtype = dtype
+        self.width_div = width_div
+
+        def width(features):
+            return max(features // width_div, 4)
+
+        c_in = 3
+        for idx, features, kernel in self.PLAN:
+            self._add_block(idx, c_in, width(features), kernel)
+            c_in = width(features)
+        self._add_block(21, width(512), width(64), 1)
+        self._add_block(22, 4 * width(64) + c_in, width(1024), 3)
+        self.feat_channels = width(1024)
+        self.conv_23 = nn.Conv2d(self.feat_channels,
+                                 num_anchors * (5 + num_classes), 1)
+
+    def _add_block(self, idx: int, c_in: int, c_out: int, kernel: int):
+        self.add_module(f'conv_{idx}', nn.Conv2d(c_in, c_out, kernel,
+                                                 bias=False))
+        self.add_module(f'norm_{idx}', BatchNorm(c_out))
+
+    def _block(self, x, idx: int, train: bool):
+        x = conv(x, getattr(self, f'conv_{idx}'))
+        x = getattr(self, f'norm_{idx}')(x, train)
+        return F.leaky_relu(x, 0.1)
+
+    def features(self, images: torch.Tensor, train: bool = False):
+        """images (B, H, W, 3) → (head (B, A·(5+C), H/32, W/32),
+        conv_feat (B, 1024, H/32, W/32)), NCHW in the compute dtype."""
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        skip = None
+        for idx, _, _ in self.PLAN:
+            x = self._block(x, idx, train)
+            if idx == 13:
+                skip = x
+            if idx in self.POOL_AFTER:
+                x = F.max_pool2d(x, 2, 2)        # flax 'VALID' pooling
+        skip = space_to_depth_2x(self._block(skip, 21, train))
+        x = self._block(torch.cat([skip, x], dim=1), 22, train)
+        return conv(x, self.conv_23), x
+
+    def forward(self, images: torch.Tensor,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) in [0, 1] →
+        {'netout': (B, H/32, W/32, A, 5+C),
+         'conv_feat': (B, H/32, W/32, 1024)}, both float32."""
+        head, feat = self.features(images, train)
+        b, _, gh, gw = head.shape
+        netout = head.permute(0, 2, 3, 1).reshape(
+            b, gh, gw, self.num_anchors, 5 + self.num_classes)
+        return {'netout': netout.float(),
+                'conv_feat': feat.permute(0, 2, 3, 1).float()}

@@ -1,0 +1,104 @@
+"""Joint multi-object detection + tracking model.
+
+Port of `object_tracking_tpu/models/multi_obj_det_tracker.py`:
+
+- the shared Darknet-19 detector runs over every frame with time folded
+  into the batch (B·T);
+- detection head = the per-frame netout reshaped to (B, T, GH, GW, A, 5+C);
+- tracking head = concat(flat netout, conv_feat) along channels →
+  FusedConvLSTM over time → 1x1 conv `tconv_2` to A·(5+C).
+
+The flat netout's channel is a·(5+C)+k in both frameworks, so the NCHW
+concat of the head conv's output with conv_feat is the JAX concat.
+Images (B, T, H, W, 3), outputs and the (c, h) state keep the JAX layouts;
+the state is (B, GH, GW, F) each.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from object_tracking_tpu_torch.models.convlstm import FusedConvLSTM
+from object_tracking_tpu_torch.models.darknet19 import Darknet19, conv
+
+
+class MultiObjDetTracker(nn.Module):
+    """Joint detect+track model with a single ConvLSTM layer and the
+    dense 1x1 track head.
+
+    `moe_experts`, `time_shards > 1`, `convlstm_layers > 1` and `remat`
+    are options of the JAX model that this port does not have yet; they
+    raise NotImplementedError naming their roadmap item.
+    """
+
+    def __init__(self, num_classes: int = 12, num_anchors: int = 5,
+                 convlstm_features: int = 512,
+                 dtype: torch.dtype = torch.float32, width_div: int = 1,
+                 remat: bool = False, moe_experts: int = 0,
+                 time_shards: int = 1, convlstm_layers: int = 1):
+        super().__init__()
+        later = []
+        if moe_experts:
+            later.append('moe_experts (queue 1, item 16)')
+        if time_shards > 1:
+            later.append('time_shards > 1 (queue 1, item 16)')
+        if convlstm_layers > 1:
+            later.append('convlstm_layers > 1 (StackedConvLSTM, queue 1, '
+                         'item 5)')
+        if remat:
+            later.append('remat (training, queue 1, item 10)')
+        if later:
+            raise NotImplementedError(
+                'not ported yet, see ROADMAP.md: ' + ', '.join(later))
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.convlstm_features = convlstm_features
+        self.dtype = dtype
+        self.detector = Darknet19(num_classes, num_anchors, dtype, width_div)
+        out_ch = num_anchors * (5 + num_classes)
+        self.tconv_lstm = FusedConvLSTM(out_ch + self.detector.feat_channels,
+                                        convlstm_features, 3, dtype)
+        self.tconv_2 = nn.Conv2d(convlstm_features, out_ch, 1)
+
+    def zero_state(self, batch: int, grid_h: int, grid_w: int):
+        """Initial streaming state (c, h), each (B, GH, GW, F) float32."""
+        z = torch.zeros((batch, grid_h, grid_w, self.convlstm_features),
+                        dtype=torch.float32,
+                        device=self.tconv_2.weight.device)
+        return (z, z)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                initial_state: Optional[tuple] = None,
+                return_state: bool = False):
+        """images (B, T, H, W, 3) in [0, 1] →
+        {'detect': (B, T, GH, GW, A, 5+C), 'track': same, float32
+         [, 'state': final (c, h), each (B, GH, GW, F) in the compute
+         dtype, when return_state]}.
+
+        `train=True` normalises with batch statistics over all B·T frames
+        (bn_mode='batch'); no running statistic is ever written.
+        """
+        b, t, h, w, c = images.shape
+        head, feat = self.detector.features(
+            images.reshape(b * t, h, w, c), train)
+        _, out_ch, gh, gw = head.shape
+        a, k = self.num_anchors, 5 + self.num_classes
+        detect = head.float().permute(0, 2, 3, 1).reshape(b, t, gh, gw, a, k)
+
+        z = torch.cat([head.to(self.dtype), feat], dim=1)
+        z = z.reshape(b, t, z.shape[1], gh, gw)
+        state0 = None
+        if initial_state is not None:
+            state0 = tuple(s.permute(0, 3, 1, 2) for s in initial_state)
+        z, state = self.tconv_lstm(z, initial_state=state0,
+                                   return_state=True)
+        track = conv(z.reshape(b * t, self.convlstm_features, gh, gw),
+                     self.tconv_2)
+        track = track.float().permute(0, 2, 3, 1).reshape(b, t, gh, gw, a, k)
+        out = {'track': track, 'detect': detect}
+        if return_state:
+            out['state'] = tuple(s.permute(0, 2, 3, 1) for s in state)
+        return out

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), built at first use.
+
+Each kernel has its source under `csrc/`, a wrapper that checks its inputs,
+launches on the current stream and counts its launches, and a plain
+PyTorch twin that CPU tensors run.
+"""
+
+from object_tracking_tpu_torch.ops.cuda.nms import (  # noqa: F401
+    nms_scores, nms_scores_plain,
+)

@@ -1,0 +1,23 @@
+"""The port's own copy of the config constants and fields equals the JAX
+package's (the port may not import it)."""
+
+import dataclasses
+
+import pytest
+
+from object_tracking_tpu import config as jcfg
+from object_tracking_tpu_torch import config as tcfg
+
+
+@pytest.mark.parametrize('name', ['YOLOV2_ANCHORS', 'TRACK_GATE_IOU',
+                                  'LABELS_MOT17'])
+def test_constants_equal(name):
+    assert getattr(tcfg, name) == getattr(jcfg, name)
+
+
+@pytest.mark.parametrize('cls', ['DetectorConfig', 'JointConfig'])
+def test_config_fields_have_the_jax_defaults(cls):
+    port, ref = getattr(tcfg, cls)(), getattr(jcfg, cls)()
+    for field in dataclasses.fields(port):
+        assert getattr(port, field.name) == getattr(ref, field.name), \
+            field.name
