@@ -1,15 +1,17 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and detector paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Needs one CUDA card, `nvcc` (the NMS kernel builds from
-object_tracking_tpu_torch/ops/cuda/csrc/ at first use) and `nvidia-smi`.
-Without a card, or outside a checkout, it exits non-zero and prints no
-result. Each phase prints one JSON line:
+Needs one CUDA card, `nvcc` (the kernels build from
+object_tracking_tpu_torch/ops/cuda/csrc/ at first use, one nvcc process
+per source, all at once) and `nvidia-smi`. Without a card, or outside a
+checkout, it exits non-zero and prints no result. Each phase prints one
+JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, both TF32 flags (set off, so float32 is float32), the
-   kernel build time and ptxas' resource line;
+   kernel build time and ptxas' resource lines;
 2. kernel: the NMS kernel against its plain PyTorch twin at the main
    path's shape (F=32 frames = B·T at B=8, T=4; K=128; C=12) and at the
    uncapped K=845; the two must agree exactly (max_abs_diff == 0) and
@@ -24,8 +26,26 @@ result. Each phase prints one JSON line:
 4. profile: per predict call, device time by kernel category under
    torch.profiler, the device's busy and idle share of the call's wall
    time, and the costliest kernels;
-5. the kernels line (each kernel's launches on the path, error, times and
-   bound), the nvidia-smi line, and last
+5. detector: the full-width YOLOv2Detector at DetectorConfig() defaults
+   (Darknet-19, 416², COCO's 80 classes, 5 anchors; random weights from
+   seed 0, BatchNorm statistics set from the first batch) runs
+   forward_batch on 8 images and the body of predict on 1; the NMS
+   kernel launches once per call, and nms_impl='sort' gives identical
+   results. Images/s at N=8 and N=1, float32 and bfloat16, and the
+   profile of each call;
+6. golden: CfgDetector on tests/fixtures/yolov2-micro.cfg/.weights and
+   VGG16PriorSource on vgg16-micro.npz detect the four committed scenes
+   (read from golden_scenes_160.npz: the card's machine has no cv2) as
+   golden_boxes.json / golden_vgg16.json pin them, with their mAP@0.5;
+7. decode_nms: the fused decode+NMS kernel against its twin on the
+   detector phase's netouts, on seeded 13x13x5x25 (with one planted
+   overflowing width) and 4x4x3x9 heads and on an all-dead frame, and
+   against the staged path (decode_netout → greedy_nms_scores(top_k=0)
+   on the NMS kernel at K=845); a probe of its sigmoid and exp against
+   torch's; device times at F=8 and F=1, the twin's and the staged
+   path's times, and the bound;
+8. the kernels line (each kernel's launches on the driven paths, error,
+   times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -35,16 +55,23 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from object_tracking_tpu_torch.config import LABELS_MOT17, YOLOV2_ANCHORS
+from object_tracking_tpu_torch.config import (
+    LABELS_MOT17, YOLOV2_ANCHORS, DetectorConfig)
+from object_tracking_tpu_torch.evaluation import evaluate_detection
 from object_tracking_tpu_torch.inference import JointPredictor
-from object_tracking_tpu_torch.models import MultiObjDetTracker
+from object_tracking_tpu_torch.models import (
+    CfgDetector, MultiObjDetTracker, VGG16PriorSource, YOLOv2Detector)
+from object_tracking_tpu_torch.models.darknet19 import BatchNorm
+from object_tracking_tpu_torch.ops.boxes import iou_center
 from object_tracking_tpu_torch.ops.cuda import _build
+from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
-from object_tracking_tpu_torch.ops.decode import decode_netout
+from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
@@ -59,6 +86,7 @@ NET = 416
 T = 4
 NUM_CLASSES = 12
 NMS_THRESHOLD = 0.45
+FIXTURES = Path(__file__).resolve().parent / 'tests' / 'fixtures'
 
 
 def emit(obj) -> None:
@@ -226,10 +254,17 @@ def pick_obj_threshold(model, clips, device) -> float:
     with torch.no_grad():
         out = model(torch.from_numpy(clips).to(device), train=True)
     anchors = torch.tensor(YOLOV2_ANCHORS, device=device)
-    _, scores = decode_netout(out['track'], anchors, 0.0)
-    best = scores.amax(-1).flatten(0, 1)                     # (B·T, 845)
+    return live_threshold(out['track'], anchors)
+
+
+def live_threshold(netout, anchors, live: int = 64) -> float:
+    """The `live`-th best candidate score of the worst frame of a
+    ([B,] [T,] GH, GW, A, 5+C) netout, nudged down: a threshold that
+    leaves at least `live` candidates in every frame."""
+    _, scores = decode_netout(netout, anchors, 0.0)
+    best = scores.amax(-1).reshape(-1, scores.shape[-2])     # (frames, N)
     kth = best.sort(dim=-1, descending=True).values[
-        :, min(63, best.shape[1] - 1)]
+        :, min(live - 1, best.shape[1] - 1)]
     return float(kth.min()) * 0.999
 
 
@@ -290,15 +325,20 @@ def fps(pred, clips, iters: int, batch_call: bool) -> float:
     results on the host, so it is synchronised."""
     call = pred.predict_batch if batch_call else (
         lambda c: pred.predict_window(c[0]))
+    return rate(lambda: call(clips), clips.shape[0] * clips.shape[1], iters)
+
+
+def rate(call, items: int, iters: int) -> float:
+    """Items/s of call(), host clock after 2 warm-up calls, synchronised
+    at both ends."""
     for _ in range(2):
-        call(clips)
+        call()
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(iters):
-        call(clips)
+        call()
     torch.cuda.synchronize()
-    return iters * clips.shape[0] * clips.shape[1] / (
-        time.perf_counter() - start)
+    return iters * items / (time.perf_counter() - start)
 
 
 def path_phase(device, smi: str) -> dict:
@@ -355,6 +395,307 @@ def path_phase(device, smi: str) -> dict:
             'card': smi}, profiles
 
 
+# ------------------------------------------------------------- detector path
+def calibrate_bn(model, images: torch.Tensor) -> None:
+    """Set every BatchNorm's running statistics to the statistics of its
+    input on `images` (one forward), so that random weights give
+    unit-scale activations through the 22 layers instead of vanishing:
+    the netout then has spread across cells, as a trained detector's has."""
+    def take(norm, args):
+        x = args[0].float()
+        norm.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        norm.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(images, train=False)
+    for hook in hooks:
+        hook.remove()
+
+
+def same_decode(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def detector_phase(device, smi: str):
+    """The full-width YOLOv2Detector: launches, kernel == sort, rates."""
+    cfg = DetectorConfig()
+    det = YOLOv2Detector(cfg, seed=0, device=device)
+    images = np.random.RandomState(2).rand(
+        8, cfg.image_h, cfg.image_w, 3).astype(np.float32)
+    calibrate_bn(det.model, torch.from_numpy(images).to(device))
+    netout = det.forward(images)['netout']               # (8, 13, 13, 5, 85)
+    cfg.obj_threshold = live_threshold(netout, det.anchors)
+
+    cuda_nms.nms_scores.launches = 0
+    _, boxes, labels, scores, valid = det.forward_batch(images)
+    single = det.detect_images(images[:1])
+    torch.cuda.synchronize()
+    launches = cuda_nms.nms_scores.launches
+    if launches != 2:
+        raise AssertionError(f'nms_scores launched {launches} times in 2 '
+                             'detector calls')
+    if not bool(valid.any(dim=1).all()) or not single[0]:
+        raise AssertionError('an image has no detection')
+    kept = scores[valid]
+    if not (bool(torch.isfinite(boxes[valid]).all())
+            and bool((kept > cfg.obj_threshold).all())
+            and bool((kept <= 1.0).all())):
+        raise AssertionError('a detection is not finite or out of range')
+    args = (det.anchors, cfg.obj_threshold, cfg.nms_threshold)
+    for top_k, net in ((16, netout), (128, netout[:1])):
+        if not same_decode(decode_and_nms(net, *args, top_k, 'kernel'),
+                           decode_and_nms(net, *args, top_k, 'sort')):
+            raise AssertionError(f"top_k={top_k}: nms_impl='kernel' and "
+                                 "'sort' disagree")
+
+    rates, profiles = {}, {}
+    bf16 = YOLOv2Detector(cfg, dtype=torch.bfloat16, device=device)
+    bf16.model.load_state_dict(det.model.state_dict())
+    for name, d in (('float32', det), ('bfloat16', bf16)):
+        for n, call in ((8, lambda d=d: d.forward_batch(images)),
+                        (1, lambda d=d: d.detect_images(images[:1]))):
+            key = f'n{n}_{name}'
+            rates[f'images_per_s_{key}'] = rate(call, n, 10)
+            profiles[key] = breakdown(device_times(call, 2),
+                                      1e3 * n / rates[f'images_per_s_{key}'])
+    return {'phase': 'detector', 'net': cfg.image_h,
+            'classes': cfg.num_classes, 'anchors': cfg.num_anchors,
+            'width_div': cfg.width_div, 'obj_threshold': cfg.obj_threshold,
+            'detections_n8': int(valid.sum()),
+            'detections_n1': len(single[0]),
+            'nms_launches': launches, 'kernel_equals_sort': True, **rates,
+            'profile': profiles, 'card': smi}, netout, cfg.obj_threshold
+
+
+def iou(a, b) -> float:
+    return float(iou_center(torch.tensor(a), torch.tensor(b)))
+
+
+def check_golden(name: str, dets, golden, net: int, min_score: float):
+    """tests/test_golden_*.py's criteria on every scene, and the scenes'
+    mAP@0.5 by evaluate_detection."""
+    labels = list(golden['labels'])
+    gt_frames, pred_frames = [], []
+    for found, scene in zip(dets, golden['images']):
+        gold = scene['detections']
+        if len(found) != len(gold):
+            raise AssertionError(f'{name} {scene["file"]}: {found} != {gold}')
+        for (label, score, box), g in zip(found, gold):
+            if not (label == g['label'] and abs(score - g['score']) < 0.05
+                    and iou(box, g['box_cxcywh']) >= 0.8):
+                raise AssertionError(f'{name} {scene["file"]}: {found} '
+                                     f'!= {gold}')
+        x0, y0, x1, y1 = scene['gt_box_xyxy']
+        gt = ((x0 + x1) / 2 / net, (y0 + y1) / 2 / net,
+              (x1 - x0) / net, (y1 - y0) / net)
+        label, score, box = found[0]
+        if not (label == scene['gt_label'] and score >= min_score
+                and iou(box, gt) > 0.5):
+            raise AssertionError(f'{name} {scene["file"]}: top detection '
+                                 f'{found[0]} misses the ground truth')
+        gt_frames.append({'boxes': np.asarray([[x0, y0, x1, y1]],
+                                              np.float32),
+                          'labels': np.asarray([labels.index(
+                              scene['gt_label'])])})
+        pred_frames.append({
+            'boxes': np.asarray([[(cx - w / 2) * net, (cy - h / 2) * net,
+                                  (cx + w / 2) * net, (cy + h / 2) * net]
+                                 for _, _, (cx, cy, w, h) in found],
+                                np.float32).reshape(-1, 4),
+            'scores': np.asarray([s for _, s, _ in found], np.float32),
+            'labels': np.asarray([labels.index(l) for l, _, _ in found])})
+    return {'scenes': len(dets), 'detections': sum(map(len, dets)),
+            'map50': evaluate_detection(gt_frames, pred_frames)['map']}
+
+
+def golden_phase(device, smi: str) -> dict:
+    """The repo's trained fixtures on the card: CfgDetector and
+    VGG16PriorSource reproduce their golden detections."""
+    scenes = np.load(FIXTURES / 'golden_scenes_160.npz')
+    images = scenes['images'].astype(np.float32) / 255.0
+    golden = json.loads((FIXTURES / 'golden_boxes.json').read_text())
+    vgolden = json.loads((FIXTURES / 'golden_vgg16.json').read_text())
+    files = [str(f) for f in scenes['files']]
+    for g in (golden, vgolden):
+        if [s['file'] for s in g['images']] != files:
+            raise AssertionError('golden scenes out of order')
+    cfg_det = CfgDetector(str(FIXTURES / golden['cfg']),
+                          weights_path=str(FIXTURES / golden['weights']),
+                          labels=tuple(golden['labels']), device=device)
+    vgg = VGG16PriorSource(
+        image_h=vgolden['net'], image_w=vgolden['net'],
+        det_labels=tuple(vgolden['labels']),
+        fc_features=vgolden['fc_features'], width_div=vgolden['width_div'],
+        weights_path=str(FIXTURES / vgolden['weights']), device=device)
+    cuda_nms.nms_scores.launches = 0
+    cfg_dets = cfg_det.detect_images(images)
+    vgg_dets = vgg.detect_images(images)
+    launches = cuda_nms.nms_scores.launches
+    if launches != 2:
+        raise AssertionError(f'nms_scores launched {launches} times in 2 '
+                             'golden calls')
+    return {'phase': 'golden',
+            'cfg_detector': check_golden('CfgDetector', cfg_dets, golden,
+                                         160, 0.0),
+            'vgg16': check_golden('VGG16PriorSource', vgg_dets, vgolden,
+                                  vgolden['net'], 0.8),
+            'nms_launches': launches, 'card': smi}
+
+
+# ------------------------------------------------------- decode+NMS kernel
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the finite entries; the non-finite entries of
+    a and b must be the same values (inf, -inf or NaN) at the same places."""
+    fin = torch.isfinite(a)
+    if not (torch.equal(fin, torch.isfinite(b))
+            and torch.equal(a[~fin].nan_to_num(0.0), b[~fin].nan_to_num(0.0))
+            and torch.equal(a[~fin].isnan(), b[~fin].isnan())):
+        raise AssertionError('non-finite entries differ')
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def decode_cases(netout: torch.Tensor, obj: float, device):
+    rng = np.random.RandomState(3)
+    head25 = rng.randn(1, 13, 13, 5, 25).astype(np.float32)
+    head25[..., 4] += 3.0
+    head25[..., 5] += 3.0
+    head25[0, 6, 6, 2, 2] = 100.0              # exp overflows: w = inf
+    head25[0, 6, 6, 2, 4:6] = (5.0, 8.0)       # and the box lives
+    head9 = rng.randn(1, 4, 4, 3, 9).astype(np.float32)
+    head9[..., 4] += 1.5
+    dead = rng.randn(1, 13, 13, 5, 25).astype(np.float32)
+    dead[..., 4] = -30.0                        # conf ~ 0: nothing lives
+    yolo = torch.tensor(YOLOV2_ANCHORS, device=device)
+    small = torch.tensor([0.8, 0.8, 1.5, 1.5, 2.5, 2.0], device=device)
+    # (name, netout, anchors, obj_threshold, must suppress something)
+    return [('detector', netout, yolo, obj, True),
+            ('head_13x13x5x25', torch.from_numpy(head25).to(device), yolo,
+             0.5, True),
+            ('head_4x4x3x9', torch.from_numpy(head9).to(device), small, 0.5,
+             False),
+            ('all_dead_13x13x5x25', torch.from_numpy(dead).to(device), yolo,
+             0.5, False)]
+
+
+def staged(netout, anchors, obj: float):
+    """decode_netout → greedy_nms_scores(top_k=0) on the NMS kernel."""
+    boxes, scores = decode_netout(netout, anchors, obj)
+    n, c = scores.shape[-2:]
+    return greedy_nms_scores(boxes.reshape(-1, n, 4).contiguous(),
+                             scores.reshape(-1, n, c).contiguous(),
+                             NMS_THRESHOLD, top_k=0, impl='kernel')
+
+
+def math_probe(device) -> dict:
+    """The kernel's sigmoid and exp against torch's on the card: with a
+    1x1 grid, unit anchors and A = 1024, box x is sigmoid(tx) and box w is
+    exp(tw), exactly."""
+    t = torch.linspace(-30.0, 30.0, 1024, device=device)
+    net = torch.zeros(1, 1, 1024, 6, device=device)
+    net[..., 0] = t
+    net[..., 2] = t
+    boxes, _ = cuda_dn.decode_nms_fused(net, torch.ones(2048, device=device))
+    ulps = {}
+    for name, got, want in (('sigmoid', boxes[:, 0], torch.sigmoid(t)),
+                            ('exp', boxes[:, 2], torch.exp(t))):
+        gap = (got.view(torch.int32) - want.view(torch.int32)).abs()
+        ulps[name] = {'values': int(t.numel()),
+                      'differ': int((gap > 0).sum()),
+                      'max_ulp': int(gap.max())}
+    return ulps
+
+
+def decode_nms_bound(scores: torch.Tensor, n: int, c: int,
+                     frames: int) -> dict:
+    """Least time for the fused decode+NMS of these inputs: bytes (netout
+    read once, boxes and scores written once) over HBM rate; operations
+    (the N² IoU and compare, ~5 per class score for the decode, one walk
+    round over N per kept box) over the float32 rate."""
+    nbytes = frames * n * (5 + c) * 4 + frames * n * (4 + c) * 4
+    rounds = int((scores > 0).sum())
+    ops = frames * n * n * IOU_OPS_PER_PAIR + 5 * frames * n * c + \
+        rounds * n * WALK_OPS_PER_CANDIDATE
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {'bound_ms': max(bytes_ms, ops_ms),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'bytes': nbytes, 'operations': ops, 'rounds': rounds}
+
+
+def decode_nms_phase(device, netout: torch.Tensor, obj: float) -> dict:
+    """The fused kernel on the detector's netouts (one launch: the op has
+    no entry point, so this is its driven path), against its twin and the
+    staged path on those and on seeded heads; times and bound."""
+    anchors = torch.tensor(YOLOV2_ANCHORS, device=device)
+    cuda_dn.decode_nms_fused.launches = 0
+    boxes, scores = cuda_dn.decode_nms_fused(netout, anchors, obj,
+                                             NMS_THRESHOLD)
+    torch.cuda.synchronize()
+    launches = cuda_dn.decode_nms_fused.launches
+    if launches != 1:
+        raise AssertionError(f'decode_nms_fused launched {launches} times '
+                             'in 1 call')
+    if not (bool(torch.isfinite(boxes).all()) and bool((scores > 0).any())
+            and bool((scores <= 1.0).all())):
+        raise AssertionError('decode_nms_fused: bad output on the '
+                             "detector's netouts")
+
+    checks = []
+    for name, net, anchors_c, thr, suppress in decode_cases(netout, obj,
+                                                             device):
+        kb, ks = cuda_dn.decode_nms_fused(net, anchors_c, thr,
+                                          NMS_THRESHOLD)
+        pb, ps = cuda_dn.decode_nms_fused_plain(
+            net, anchors_c.reshape(-1, 2), thr, NMS_THRESHOLD)
+        sb, ss = staged(net, anchors_c, thr)
+        torch.cuda.synchronize()
+        live = int((decode_netout(net, anchors_c, thr)[1] > 0).sum())
+        check = {'case': name, 'shape': list(net.shape),
+                 'boxes_max_abs_diff': max_abs_diff(kb, pb),
+                 'scores_max_abs_diff': max_abs_diff(ks, ps),
+                 'staged_boxes_max_abs_diff': max_abs_diff(kb, sb),
+                 'staged_scores_max_abs_diff': max_abs_diff(ks, ss),
+                 'live': live, 'kept': int((ks > 0).sum())}
+        check['exact'] = (check['boxes_max_abs_diff'] == 0
+                          and check['scores_max_abs_diff'] == 0)
+        if not (torch.equal(ks > 0, ps > 0) and torch.equal(ks > 0, ss > 0)):
+            raise AssertionError(f'decode_nms {name}: kept sets differ')
+        # twin: the same operations in the same order (exact on the card
+        # so far; 1e-6 allows one ulp of a transcendental). Staged path:
+        # torch.softmax and divisions by a Python scalar round otherwise.
+        if max(check['boxes_max_abs_diff'],
+               check['scores_max_abs_diff']) > 1e-6 or max(
+                   check['staged_boxes_max_abs_diff'],
+                   check['staged_scores_max_abs_diff']) > 1e-5:
+            raise AssertionError(f'decode_nms {name}: {check}')
+        if name.startswith('all_dead') != (live == 0) or (
+                suppress and check['kept'] >= live):
+            raise AssertionError(f'decode_nms {name}: live {live}, '
+                                 f'kept {check["kept"]}')
+        checks.append(check)
+
+    times = {}
+    for frames in (8, 1):
+        net = netout[:frames]
+        fused = (lambda net=net: cuda_dn.decode_nms_fused(
+            net, anchors, obj, NMS_THRESHOLD))
+        dev = [ms for name, (_, ms) in device_times(fused, 20).items()
+               if 'decode_nms' in name]
+        times[f'f{frames}'] = {
+            'kernel_device_ms': dev[0] if dev else None,
+            'kernel_call_ms': cuda_ms(fused, iters=50, warmup=5),
+            'plain_ms': cuda_ms(lambda net=net: cuda_dn.decode_nms_fused_plain(
+                net, anchors.reshape(-1, 2), obj, NMS_THRESHOLD), iters=3),
+            'staged_ms': cuda_ms(lambda net=net: staged(net, anchors, obj),
+                                 iters=20)}
+    n, c = scores.shape[-2:]
+    return {'launches': launches, 'checks': checks,
+            'math_probe': math_probe(device), 'times': times,
+            **decode_nms_bound(scores, n, c, netout.shape[0])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -383,13 +724,27 @@ def main() -> int:
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
+    detector, netout, obj = detector_phase(device, smi)
+    emit(detector)
+    golden = golden_phase(device, smi)
+    emit(golden)
+    dn = decode_nms_phase(device, netout, obj)
+    emit({'phase': 'decode_nms', **dn, 'card': smi})
+
+    nms_launches = {'joint_path': path['nms_launches'],
+                    'detector_path': detector['nms_launches'],
+                    'golden_detectors': golden['nms_launches']}
+    dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
+                 for c in dn['checks'])
+    dn_f8 = dn['times']['f8']
     emit({'kernels': [{
         'name': 'nms_scores',
         'route': 'cuda',
         'source': 'object_tracking_tpu_torch/ops/cuda/csrc/nms_scores.cu',
         'replaces': 'object_tracking_tpu/ops/pallas/nms_pallas.py:83',
         'shapes': {'boxes': [32, 128, 4], 'scores': [32, 128, NUM_CLASSES]},
-        'launches': path['nms_launches'],
+        'launches': sum(nms_launches.values()),
+        'launches_by_path': nms_launches,
         'max_abs_err': max(c['max_abs_diff'] for c in kern['checks']),
         'max_abs_diff': max(c['max_abs_diff'] for c in kern['checks']),
         'ms': kern['kernel_device_ms'] or min(kern['kernel_call_ms']),
@@ -400,6 +755,23 @@ def main() -> int:
         # no installed PyTorch call computes per-class greedy NMS over a
         # score matrix (torchvision's batched_nms is not installed, and it
         # is single-label hard NMS)
+        'library_ms': None}, {
+        'name': 'decode_nms_fused',
+        'route': 'cuda',
+        'source': 'object_tracking_tpu_torch/ops/cuda/csrc/decode_nms.cu',
+        'replaces': 'object_tracking_tpu/ops/pallas/decode_nms_pallas.py:100',
+        'shapes': {'netout': list(netout.shape)},
+        'launches': dn['launches'],
+        'launches_by_path': {'detector_netouts': dn['launches']},
+        'max_abs_err': dn_err,
+        'max_abs_diff': dn_err,
+        'ms': dn_f8['kernel_device_ms'] or dn_f8['kernel_call_ms'],
+        'call_ms': dn_f8['kernel_call_ms'],
+        'plain_ms': dn_f8['plain_ms'],
+        'staged_ms': dn_f8['staged_ms'],
+        'bound_ms': dn['bound_ms'], 'bound_by': dn['bound_by'],
+        # no installed PyTorch call computes per-class greedy NMS, let
+        # alone with the region decode fused in
         'library_ms': None}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -1,9 +1,10 @@
-"""Convert a flax variables tree of the JAX package to a torch state_dict.
+"""Convert between a flax variables tree and a torch state_dict.
 
 `from_flax` takes `{'params': ..., 'batch_stats': ...}` as nested dicts of
 numpy arrays (convert JAX arrays with `np.asarray` first: this module never
 imports JAX) and returns the state_dict of the matching port module:
-`MultiObjDetTracker`, `Darknet19` or `FusedConvLSTM`.
+`MultiObjDetTracker`, `Darknet19`, `FusedConvLSTM`, `DarknetCfgNet` or
+`VGG16`. Leaves are copied, never shared with the numpy arrays.
 
 - conv `kernel` (kh, kw, in, out) HWIO → `weight` (out, in, kh, kw) OIHW;
 - `tconv_lstm/recurrent_kernel` (kh, kw, F, 4F) → (4F, F, kh, kw), the
@@ -16,11 +17,14 @@ imports JAX) and returns the state_dict of the matching port module:
 A leaf that no rule maps, or a BatchNorm missing one of its four
 entries, raises; `load_state_dict(strict=True)` then catches any key the
 module has and the tree lacks.
+
+`to_flax` is its inverse: a state_dict → the same nested numpy tree, which
+the darknet exporters (`ops/weights.py`, `models/darknet_cfg.py`) write.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +50,7 @@ def _tensor(path: Tuple[str, ...], leaf: str, value: np.ndarray):
             raise ValueError(f'{"/".join(path)}: expected a 4-d conv kernel, '
                              f'got shape {value.shape}')
         value = value.transpose(3, 2, 0, 1)            # HWIO → OIHW
-    return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+    return torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
 
 
 def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -71,3 +75,34 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         if missing:
             raise KeyError(f'missing key(s) for BatchNorm {norm}: {missing}')
     return state
+
+
+def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """torch state_dict → flax {'params', 'batch_stats'} of numpy arrays:
+    the inverse of `from_flax`."""
+    norms = {k.rsplit('.', 1)[0] for k in state
+             if k.endswith('.running_mean')}
+    tree: Dict[str, Any] = {'params': {}, 'batch_stats': {}}
+    for key, value in state.items():
+        module, leaf = key.rsplit('.', 1)
+        value = value.detach().cpu().float().numpy()
+        if module in norms:
+            collection, name = {
+                'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
+                'running_mean': ('batch_stats', 'mean'),
+                'running_var': ('batch_stats', 'var')}[leaf]
+        elif leaf in ('weight', 'recurrent_kernel') and value.ndim == 4:
+            collection, name = 'params', ('kernel' if leaf == 'weight'
+                                          else leaf)
+            value = value.transpose(2, 3, 1, 0)            # OIHW → HWIO
+        elif leaf == 'bias':
+            collection, name = 'params', 'bias'
+        else:
+            raise KeyError(f'no flax name for {key} {tuple(value.shape)}')
+        node = tree[collection]
+        for part in module.split('.'):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(value)
+    if not tree['batch_stats']:
+        del tree['batch_stats']
+    return tree

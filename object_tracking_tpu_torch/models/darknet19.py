@@ -24,13 +24,26 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def space_to_depth_2x(x: torch.Tensor) -> torch.Tensor:
-    """tf.space_to_depth(block_size=2) on NCHW: output channel
-    (di * 2 + dj) * C + c takes input channel c at offset (di, dj)."""
+def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
+    """tf.space_to_depth on NCHW: output channel (di * block + dj) * C + c
+    takes input channel c at offset (di, dj)."""
     b, c, h, w = x.shape
-    x = x.reshape(b, c, h // 2, 2, w // 2, 2)
-    x = x.permute(0, 3, 5, 1, 2, 4)             # (b, di, dj, c, h/2, w/2)
-    return x.reshape(b, 4 * c, h // 2, w // 2)
+    x = x.reshape(b, c, h // block, block, w // block, block)
+    x = x.permute(0, 3, 5, 1, 2, 4)             # (b, di, dj, c, h/s, w/s)
+    return x.reshape(b, block * block * c, h // block, w // block)
+
+
+def space_to_depth_2x(x: torch.Tensor) -> torch.Tensor:
+    """tf.space_to_depth(block_size=2) on NCHW."""
+    return space_to_depth(x, 2)
+
+
+def seeded(seed: int, build):
+    """`build()` under a global torch RNG seeded with `seed`, restored
+    afterwards: a module's random init is a function of the seed alone."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
 
 
 class BatchNorm(nn.Module):

@@ -5,6 +5,9 @@ launches on the current stream and counts its launches, and a plain
 PyTorch twin that CPU tensors run.
 """
 
+from object_tracking_tpu_torch.ops.cuda.decode_nms import (  # noqa: F401
+    decode_nms_fused, decode_nms_fused_plain,
+)
 from object_tracking_tpu_torch.ops.cuda.nms import (  # noqa: F401
     nms_scores, nms_scores_plain,
 )

@@ -10,7 +10,7 @@ from object_tracking_tpu_torch import config as tcfg
 
 
 @pytest.mark.parametrize('name', ['YOLOV2_ANCHORS', 'TRACK_GATE_IOU',
-                                  'LABELS_MOT17'])
+                                  'LABELS_MOT17', 'LABELS_COCO'])
 def test_constants_equal(name):
     assert getattr(tcfg, name) == getattr(jcfg, name)
 
@@ -21,3 +21,9 @@ def test_config_fields_have_the_jax_defaults(cls):
     for field in dataclasses.fields(port):
         assert getattr(port, field.name) == getattr(ref, field.name), \
             field.name
+
+
+def test_detector_config_num_classes():
+    assert tcfg.DetectorConfig().num_classes == \
+        jcfg.DetectorConfig().num_classes == 80
+    assert tcfg.DetectorConfig(labels=('a', 'b')).num_classes == 2

@@ -40,12 +40,16 @@ def _forbidden(name: str) -> bool:
 
 def test_package_has_the_slice_modules():
     names = set(_modules())
-    for module in ('config', 'convert', 'inference', 'ops.boxes', 'ops.nms',
-                   'ops.decode', 'ops.matching', 'ops.cuda.nms',
-                   'ops.cuda._build', 'models.darknet19', 'models.convlstm',
-                   'models.multi_obj_det_tracker'):
+    for module in ('config', 'convert', 'inference', 'evaluation',
+                   'ops.boxes', 'ops.nms', 'ops.decode', 'ops.matching',
+                   'ops.weights', 'ops.caffemodel', 'ops.cuda.nms',
+                   'ops.cuda.decode_nms', 'ops.cuda._build',
+                   'models.darknet19', 'models.convlstm',
+                   'models.multi_obj_det_tracker', 'models.yolov2',
+                   'models.darknet_cfg', 'models.vgg16'):
         assert f'object_tracking_tpu_torch.{module}' in names
-    assert (PACKAGE / 'ops' / 'cuda' / 'csrc' / 'nms_scores.cu').is_file()
+    for source in ('nms_scores.cu', 'decode_nms.cu'):
+        assert (PACKAGE / 'ops' / 'cuda' / 'csrc' / source).is_file()
 
 
 def test_importing_the_port_loads_no_jax():
