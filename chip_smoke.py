@@ -13,16 +13,23 @@ JSON line:
    versions, both TF32 flags (set off, so float32 is float32), the
    kernel build time and ptxas' resource lines;
 2. kernel: the NMS kernel against its plain PyTorch twin at the main
-   path's shape (F=32 frames = B·T at B=8, T=4; K=128; C=12) and at the
-   uncapped K=845; the two must agree exactly (max_abs_diff == 0) and
-   suppress something; kernel and plain times by CUDA events;
+   path's shape (F=32 frames = B·T at B=8, T=4; K=128; C=12), at the
+   full 13x13x5 lattice K=845, at the 19x19x5 lattice K=1805 and at
+   each shape the paths give it ((32,128,12), (4,128,12), (8,16,80),
+   (1,128,80)); the two must agree exactly (max_abs_diff == 0) and
+   suppress something. At each path shape, its device time under
+   torch.profiler, summed over its two passes (mask, walk) and split by
+   pass, its call time by CUDA events, the wrapper's host cost per call
+   (host_us, beside torch_launch_us, the host cost of one plain torch
+   launch), the plain twin's time and the bound;
 3. path: a JointPredictor at bench.py's model (416², T=4, 12 classes,
    5 anchors, ConvLSTM-512, full width, random weights from a seed)
    serves three streamed predict_batch calls at B=8 and three
    predict_window calls at B=1. The kernel's launch count must rise by
    one per call, and the same calls with impl='sort' must give identical
    detections and ids. Then frames/s at B=1 and B=8, float32 and
-   bfloat16;
+   bfloat16, each the median of three samples (all three kept: these
+   calls are host-bound and spread widely);
 4. profile: per predict call, device time by kernel category under
    torch.profiler, the device's busy and idle share of the call's wall
    time, and the costliest kernels;
@@ -31,19 +38,20 @@ JSON line:
    seed 0, BatchNorm statistics set from the first batch) runs
    forward_batch on 8 images and the body of predict on 1; the NMS
    kernel launches once per call, and nms_impl='sort' gives identical
-   results. Images/s at N=8 and N=1, float32 and bfloat16, and the
-   profile of each call;
+   results. Images/s at N=8 and N=1, float32 and bfloat16 (median of
+   three samples, as above), and the profile of each call;
 6. golden: CfgDetector on tests/fixtures/yolov2-micro.cfg/.weights and
    VGG16PriorSource on vgg16-micro.npz detect the four committed scenes
    (read from golden_scenes_160.npz: the card's machine has no cv2) as
    golden_boxes.json / golden_vgg16.json pin them, with their mAP@0.5;
 7. decode_nms: the fused decode+NMS kernel against its twin on the
    detector phase's netouts, on seeded 13x13x5x25 (with one planted
-   overflowing width) and 4x4x3x9 heads and on an all-dead frame, and
-   against the staged path (decode_netout → greedy_nms_scores(top_k=0)
-   on the NMS kernel at K=845); a probe of its sigmoid and exp against
-   torch's; device times at F=8 and F=1, the twin's and the staged
-   path's times, and the bound;
+   overflowing width), 4x4x3x9 and 19x19x5x85 (N=1805) heads and on an
+   all-dead frame, and against the staged path (decode_netout →
+   greedy_nms_scores(top_k=0) on the NMS kernel at K=N); a probe of its
+   sigmoid and exp against torch's; device times at F=8 and F=1, summed
+   over its three passes (decode, mask, walk) and split by pass, its host
+   cost per call, the twin's and the staged path's times, and the bound;
 8. the kernels line (each kernel's launches on the driven paths, error,
    times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,6 +60,7 @@ JSON line:
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,23 +123,57 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int) -> float:
+    """Mean host time of fn() in µs: the calls are queued back to back
+    and the host clock stops before the closing synchronisation, so this
+    is what the host spends to launch them, not what the card spends."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    took = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return took / iters * 1e6
+
+
 def device_times(fn, iters: int) -> dict:
     """Device time of fn() by kernel name under torch.profiler:
     {name: [launches per call, device ms per call]}; empty when the
-    profiler recorded no device activity."""
+    profiler recorded no device activity (one retry)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {evt.key: [evt.count / iters, evt.device_time_total / 1e3 / iters]
-            for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA
-            and evt.device_time_total > 0}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {evt.key: [evt.count / iters,
+                             evt.device_time_total / 1e3 / iters]
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA
+                   and evt.device_time_total > 0}
+        if kernels:
+            return kernels
+    return {}
+
+
+def op_device_ms(fn, fragment: str, iters: int) -> dict:
+    """An op's device time per call under torch.profiler, summed over
+    every kernel whose name holds `fragment` (each pass of the op), and
+    split by pass: {'ms': total or None, 'passes': {pass: ms}}."""
+    passes: dict = {}
+    for name, (_, ms) in device_times(fn, iters).items():
+        if fragment in name:
+            found = re.search(fragment + r'\w*', name)
+            key = found.group(0)
+            passes[key] = passes.get(key, 0.0) + ms
+    return {'ms': sum(passes.values()) if passes else None,
+            'passes': passes}
 
 
 # kernel-name fragments → category of the path's device time
@@ -168,10 +211,10 @@ def breakdown(kernels: dict, wall_ms: float) -> dict:
             'top': [[name[:90], n, ms] for name, (n, ms) in top]}
 
 
-def candidates(rng, frames: int, k: int, c: int):
+def candidates(rng, frames: int, k: int, c: int, dead_frame: bool = True):
     """Seeded candidate sets as tests/test_pallas.py makes them: boxes in
     the middle of the image, live scores in half or more of the entries;
-    frame 0 all dead."""
+    frame 0 all dead unless dead_frame is False."""
     boxes = np.stack([rng.uniform(0.2, 0.8, (frames, k)),
                       rng.uniform(0.2, 0.8, (frames, k)),
                       rng.uniform(0.05, 0.4, (frames, k)),
@@ -180,7 +223,8 @@ def candidates(rng, frames: int, k: int, c: int):
     scores = rng.rand(frames, k, c).astype(np.float32)
     dead = rng.uniform(0.3, 0.9, (frames, 1, 1))
     scores[scores < dead] = 0.0
-    scores[0] = 0.0
+    if dead_frame:
+        scores[0] = 0.0
     return boxes, scores
 
 
@@ -200,46 +244,66 @@ def nms_bound(out: torch.Tensor, k: int, c: int, frames: int) -> dict:
             'bytes': nbytes, 'operations': ops, 'rounds': rounds}
 
 
+# (frames, K, C) of the NMS kernel on the driven paths: joint predict_batch
+# (B·T = 32) and predict_window (T = 4), detector forward_batch (top-16 of
+# 8 images) and predict (top-128 of 1)
+NMS_PATH_SHAPES = ((32, 128, NUM_CLASSES), (4, 128, NUM_CLASSES), (8, 16, 80),
+                   (1, 128, 80))
+
+
+def check_nms(b, s, dead_frame: bool):
+    """Kernel 1 against its plain twin on the same card tensors: exact,
+    something suppressed, and frame 0 all zero where it was made dead.
+    Returns the kernel's output and the check's record."""
+    frames, k, c = s.shape
+    out = cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
+    plain = cuda_nms.nms_scores_plain(b, s, NMS_THRESHOLD)
+    torch.cuda.synchronize()
+    diff = (out - plain).abs().max().item()
+    suppressed = int(((s > 0) & (out == 0)).sum())
+    if diff != 0 or suppressed == 0 or (dead_frame and out[0].any()):
+        raise AssertionError(f'nms_scores F={frames} K={k} C={c}: '
+                             f'max_abs_diff={diff}, suppressed={suppressed}')
+    return out, {'frames': frames, 'k': k, 'classes': c, 'max_abs_diff': diff,
+                 'live': int((s > 0).sum()), 'suppressed': suppressed}
+
+
 def kernel_phase(device) -> dict:
-    """NMS kernel vs its plain twin on the card, exact; timings."""
+    """NMS kernel vs its plain twin on the card, exact, at every path
+    shape and up to the 19x19x5 lattice; device time by pass, call time,
+    twin time and bound at each path shape."""
     rng = np.random.RandomState(0)
     checks = []
-    for frames, k in ((32, 128), (4, 845)):
+    for frames, k in ((32, 128), (4, 845), (2, 1805)):
         boxes, scores = candidates(rng, frames, k, NUM_CLASSES)
+        checks.append(check_nms(torch.from_numpy(boxes).to(device),
+                                torch.from_numpy(scores).to(device),
+                                dead_frame=True)[1])
+    times = {}
+    for frames, k, c in NMS_PATH_SHAPES:
+        boxes, scores = candidates(rng, frames, k, c, dead_frame=False)
         b = torch.from_numpy(boxes).to(device)
         s = torch.from_numpy(scores).to(device)
-        out = cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
-        plain = cuda_nms.nms_scores_plain(b, s, NMS_THRESHOLD)
-        torch.cuda.synchronize()
-        diff = (out - plain).abs().max().item()
-        suppressed = int(((s > 0) & (out == 0)).sum())
-        if diff != 0 or suppressed == 0 or out[0].any():
-            raise AssertionError(f'nms_scores F={frames} K={k}: '
-                                 f'max_abs_diff={diff}, '
-                                 f'suppressed={suppressed}')
-        checks.append({'frames': frames, 'k': k, 'max_abs_diff': diff,
-                       'live': int((s > 0).sum()), 'suppressed': suppressed})
-    # time at the main path's shape: F = B·T = 32, K = 128, C = 12
-    boxes, scores = candidates(rng, 32, 128, NUM_CLASSES)
-    b = torch.from_numpy(boxes).to(device)
-    s = torch.from_numpy(scores).to(device)
-    out = cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
-    kernel_ms = cuda_ms(lambda: cuda_nms.nms_scores(b, s, NMS_THRESHOLD),
-                        iters=200, warmup=10)
-    plain_ms = cuda_ms(lambda: cuda_nms.nms_scores_plain(b, s,
-                                                         NMS_THRESHOLD),
-                       iters=10)
-    kernel_ms_2 = cuda_ms(lambda: cuda_nms.nms_scores(b, s, NMS_THRESHOLD),
-                          iters=200, warmup=10)
-    # the kernel's own device time; the event times above span 200
-    # back-to-back wrapper calls and include any host launch gap
-    device = [ms for name, (_, ms) in device_times(
-        lambda: cuda_nms.nms_scores(b, s, NMS_THRESHOLD), 50).items()
-        if 'nms_scores' in name]
-    return {'checks': checks,
-            'kernel_device_ms': device[0] if device else None,
-            'kernel_call_ms': [kernel_ms, kernel_ms_2],
-            'plain_ms': plain_ms, **nms_bound(out, 128, NUM_CLASSES, 32)}
+        out, check = check_nms(b, s, dead_frame=False)
+        checks.append(check)
+
+        def call(b=b, s=s):
+            return cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
+        times[f'{frames}x{k}x{c}'] = {
+            # the kernel's own device time, summed over its passes; the
+            # event times span 200 back-to-back wrapper calls and include
+            # the host's launch gaps
+            'device': op_device_ms(call, 'nms_scores', 50),
+            'call_ms': cuda_ms(call, iters=200, warmup=10),
+            # the wrapper's host cost: plan, allocations, two launches
+            'host_us': host_us(call, 500),
+            'plain_ms': cuda_ms(lambda b=b, s=s: cuda_nms.nms_scores_plain(
+                b, s, NMS_THRESHOLD), iters=10),
+            **nms_bound(out, k, c, frames)}
+    # the yardstick for host_us: one launch of a one-op torch kernel
+    x = torch.zeros(16, device=device)
+    return {'checks': checks, 'times': times,
+            'torch_launch_us': host_us(lambda: x.add_(1.0), 2000)}
 
 
 def requests(rng, batch: int, count: int):
@@ -320,25 +384,37 @@ def check_results(frames, obj_threshold) -> dict:
             'track_ids': len({d['track_id'] for f in frames for d in f})}
 
 
-def fps(pred, clips, iters: int, batch_call: bool) -> float:
-    """Frames/s of the public call, host clock; every call ends with its
-    results on the host, so it is synchronised."""
+def fps(pred, clips, iters: int, batch_call: bool) -> list:
+    """Frames/s samples of the public call, host clock; every call ends
+    with its results on the host, so it is synchronised."""
     call = pred.predict_batch if batch_call else (
         lambda c: pred.predict_window(c[0]))
     return rate(lambda: call(clips), clips.shape[0] * clips.shape[1], iters)
 
 
-def rate(call, items: int, iters: int) -> float:
-    """Items/s of call(), host clock after 2 warm-up calls, synchronised
-    at both ends."""
+def rate(call, items: int, iters: int, samples: int = 3) -> list:
+    """Items/s of call() in `samples` back-to-back samples of `iters`
+    calls each, host clock after 2 warm-up calls, synchronised at both
+    ends of each sample. Host-bound calls spread widely from one sample
+    to the next, so every sample is kept."""
     for _ in range(2):
         call()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(iters):
-        call()
-    torch.cuda.synchronize()
-    return iters * items / (time.perf_counter() - start)
+    out = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+        out.append(iters * items / (time.perf_counter() - start))
+    return out
+
+
+def put_rate(rates: dict, key: str, samples: list) -> float:
+    """rates[key] = the samples' median, rates[key + '_samples'] = them."""
+    rates[key] = float(np.median(samples))
+    rates[key + '_samples'] = samples
+    return rates[key]
 
 
 def path_phase(device, smi: str) -> dict:
@@ -380,13 +456,14 @@ def path_phase(device, smi: str) -> dict:
         pred = JointPredictor(m, YOLOV2_ANCHORS, **kwargs)
         for batch, clips in ((8, batch_reqs[0]), (1, window_reqs[0])):
             key = f'b{batch}_{name}'
-            rates[f'fps_{key}'] = fps(pred, clips, 5 if batch > 1 else 10,
-                                      batch > 1)
+            median = put_rate(rates, f'fps_{key}',
+                              fps(pred, clips, 5 if batch > 1 else 10,
+                                  batch > 1))
             call = (lambda c=clips, p=pred: p.predict_batch(c)) \
                 if batch > 1 else \
                 (lambda c=clips, p=pred: p.predict_window(c[0]))
             profiles[key] = breakdown(device_times(call, 2),
-                                      1e3 * batch * T / rates[f'fps_{key}'])
+                                      1e3 * batch * T / median)
     return {'phase': 'path', 'net': NET, 'T': T, 'classes': NUM_CLASSES,
             'anchors': 5, 'convlstm_features': 512, 'width_div': 1,
             'obj_threshold': obj_threshold, 'nms_probe': probe,
@@ -457,9 +534,9 @@ def detector_phase(device, smi: str):
         for n, call in ((8, lambda d=d: d.forward_batch(images)),
                         (1, lambda d=d: d.detect_images(images[:1]))):
             key = f'n{n}_{name}'
-            rates[f'images_per_s_{key}'] = rate(call, n, 10)
-            profiles[key] = breakdown(device_times(call, 2),
-                                      1e3 * n / rates[f'images_per_s_{key}'])
+            median = put_rate(rates, f'images_per_s_{key}',
+                              rate(call, n, 10))
+            profiles[key] = breakdown(device_times(call, 2), 1e3 * n / median)
     return {'phase': 'detector', 'net': cfg.image_h,
             'classes': cfg.num_classes, 'anchors': cfg.num_anchors,
             'width_div': cfg.width_div, 'obj_threshold': cfg.obj_threshold,
@@ -567,6 +644,10 @@ def decode_cases(netout: torch.Tensor, obj: float, device):
     head9[..., 4] += 1.5
     dead = rng.randn(1, 13, 13, 5, 25).astype(np.float32)
     dead[..., 4] = -30.0                        # conf ~ 0: nothing lives
+    head85 = rng.randn(1, 19, 19, 5, 85).astype(np.float32)
+    head85[..., 4] += 4.0                       # 608² input: N = 1805
+    head85[..., 5] += 6.0                       # class 0 lives widely
+    head85[..., 2:4] += 1.0                     # wider boxes: overlaps
     yolo = torch.tensor(YOLOV2_ANCHORS, device=device)
     small = torch.tensor([0.8, 0.8, 1.5, 1.5, 2.5, 2.0], device=device)
     # (name, netout, anchors, obj_threshold, must suppress something)
@@ -576,7 +657,9 @@ def decode_cases(netout: torch.Tensor, obj: float, device):
             ('head_4x4x3x9', torch.from_numpy(head9).to(device), small, 0.5,
              False),
             ('all_dead_13x13x5x25', torch.from_numpy(dead).to(device), yolo,
-             0.5, False)]
+             0.5, False),
+            ('head_19x19x5x85', torch.from_numpy(head85).to(device), yolo,
+             0.5, True)]
 
 
 def staged(netout, anchors, obj: float):
@@ -681,11 +764,10 @@ def decode_nms_phase(device, netout: torch.Tensor, obj: float) -> dict:
         net = netout[:frames]
         fused = (lambda net=net: cuda_dn.decode_nms_fused(
             net, anchors, obj, NMS_THRESHOLD))
-        dev = [ms for name, (_, ms) in device_times(fused, 20).items()
-               if 'decode_nms' in name]
         times[f'f{frames}'] = {
-            'kernel_device_ms': dev[0] if dev else None,
+            'device': op_device_ms(fused, 'decode_nms', 20),
             'kernel_call_ms': cuda_ms(fused, iters=50, warmup=5),
+            'host_us': host_us(fused, 200),
             'plain_ms': cuda_ms(lambda net=net: cuda_dn.decode_nms_fused_plain(
                 net, anchors.reshape(-1, 2), obj, NMS_THRESHOLD), iters=3),
             'staged_ms': cuda_ms(lambda net=net: staged(net, anchors, obj),
@@ -737,6 +819,7 @@ def main() -> int:
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']
+    k1 = kern['times'][f'32x128x{NUM_CLASSES}']
     emit({'kernels': [{
         'name': 'nms_scores',
         'route': 'cuda',
@@ -747,11 +830,14 @@ def main() -> int:
         'launches_by_path': nms_launches,
         'max_abs_err': max(c['max_abs_diff'] for c in kern['checks']),
         'max_abs_diff': max(c['max_abs_diff'] for c in kern['checks']),
-        'ms': kern['kernel_device_ms'] or min(kern['kernel_call_ms']),
-        'kernel_ms': kern['kernel_device_ms'] or min(kern['kernel_call_ms']),
-        'call_ms': min(kern['kernel_call_ms']),
-        'plain_ms': kern['plain_ms'],
-        'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
+        'ms': k1['device']['ms'] or k1['call_ms'],
+        'passes_ms': k1['device']['passes'],
+        'call_ms': k1['call_ms'],
+        'host_us': k1['host_us'],
+        'plain_ms': k1['plain_ms'],
+        'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
+        'ms_by_shape': {shape: t['device']['ms']
+                        for shape, t in kern['times'].items()},
         # no installed PyTorch call computes per-class greedy NMS over a
         # score matrix (torchvision's batched_nms is not installed, and it
         # is single-label hard NMS)
@@ -765,8 +851,11 @@ def main() -> int:
         'launches_by_path': {'detector_netouts': dn['launches']},
         'max_abs_err': dn_err,
         'max_abs_diff': dn_err,
-        'ms': dn_f8['kernel_device_ms'] or dn_f8['kernel_call_ms'],
+        'ms': dn_f8['device']['ms'] or dn_f8['kernel_call_ms'],
+        'passes_ms': dn_f8['device']['passes'],
+        'ms_f1': dn['times']['f1']['device']['ms'],
         'call_ms': dn_f8['kernel_call_ms'],
+        'host_us': dn_f8['host_us'],
         'plain_ms': dn_f8['plain_ms'],
         'staged_ms': dn_f8['staged_ms'],
         'bound_ms': dn['bound_ms'], 'bound_by': dn['bound_by'],

@@ -3,8 +3,9 @@
 Each `csrc/*.cu` source compiles with `nvcc` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). Libraries
 land in `<checkout>/build/kernels/`, which `.gitignore` lists, under a name
-keyed on a hash of the source and the flags: an edited source rebuilds, an
-unchanged one loads the library already there. All missing libraries are
+keyed on a hash of the source, every header under `csrc/` and the flags:
+an edited source or header rebuilds, an unchanged one loads the library
+already there. All missing libraries are
 compiled together, one `nvcc` process per source.
 
 Nothing here runs at import time; `load(name)` is called by a kernel
@@ -52,8 +53,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 

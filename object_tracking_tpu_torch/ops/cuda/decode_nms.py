@@ -6,8 +6,10 @@ Counterpart of the TPU kernel
 body `_kernel`): the region decode of a detector head (sigmoid, softmax,
 conf × probs, threshold, the cell/anchor box build) and then the greedy
 walk of `nms_scores` over the FULL lattice of N = GH·GW·A candidates, with
-no top-k cap. The kernel is `csrc/decode_nms.cu`; its header says what
-bounds it and how the design answers that.
+no top-k cap. The kernel is `csrc/decode_nms.cu`, three passes (decode,
+the bitmask and the walk of `csrc/nms_common.cuh`) that count as one
+launch; its header says what bounds it and how the design answers that.
+`launch_plan` holds every size the launch uses.
 
 No entry point calls it, as in the JAX package: it is a public op, the
 fused form of `decode_netout` → `greedy_nms_scores(top_k=0)`. F frames
@@ -19,15 +21,52 @@ CUDA tensor it launches the kernel (and counts the launch in
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from object_tracking_tpu_torch.ops.cuda.nms import greedy_walk, pallas_iou
+from object_tracking_tpu_torch.ops.cuda.nms import (
+    MAX_K, SMEM_LIMIT, greedy_walk, mask_plan, pallas_iou, walk_plan)
 
-MAX_N = 1024    # candidates per frame the kernel takes (32 words of 32)
+MAX_N = MAX_K         # candidates per frame the kernel takes
+DECODE_THREADS = 256  # kDecodeThreads (csrc/decode_nms.cu)
+DECODE_TILE = 64      # candidates a decode block takes
 
 _fn = None
+
+
+def decode_smem(tile: int, c: int) -> int:
+    """Shared memory of a decode block, as csrc/decode_nms.cu::decode_smem
+    sizes the launch; here it chooses the tile. The tile's netout rows,
+    then conf, max logit and sum a candidate."""
+    return 4 * (tile * (5 + c) + 3 * tile)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(frames: int, n: int, c: int) -> dict:
+    """Every size of one `decode_nms_fused` launch: each pass's grid,
+    block, tile and dynamic shared memory, and the bitmask scratch
+    (F·N·⌈N/32⌉ words). Raises above MAX_N or where a pass would not fit.
+    Cached per shape, since every launch asks for it: treat the dict as
+    read-only."""
+    if n > MAX_N:
+        raise ValueError(f'decode_nms_fused takes at most {MAX_N} '
+                         f'candidates per frame, got {n}')
+    tile = DECODE_TILE
+    while tile > 1 and decode_smem(tile, c) > SMEM_LIMIT:
+        tile //= 2
+    plan = {'decode': {'grid': (-(-n // tile), frames),
+                       'threads': DECODE_THREADS, 'tile': tile,
+                       'smem': decode_smem(tile, c)},
+            'mask': mask_plan(frames, n),
+            'walk': walk_plan(frames, n, c),
+            'scratch_bytes': frames * n * (-(-n // 32)) * 4}
+    for name in ('decode', 'mask', 'walk'):
+        if plan[name]['smem'] > SMEM_LIMIT:
+            raise ValueError(f'decode_nms_fused: the {name} pass needs '
+                             f'{plan[name]["smem"]} B of shared memory')
+    return plan
 
 
 def _launcher():
@@ -36,9 +75,11 @@ def _launcher():
         from object_tracking_tpu_torch.ops.cuda import _build
         fn = _build.load('decode_nms').decode_nms_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -91,7 +132,7 @@ def decode_nms_fused(netout: torch.Tensor, anchors,
     netout ([F,] GH, GW, A, 5+C), cast to contiguous float32; anchors
     (A·2,) or (A, 2) in grid-cell units → (boxes ([F,] N, 4) center-format
     relative, scores ([F,] N, C) with suppressed scores zeroed),
-    N = GH·GW·A ≤ 1024 on CUDA. Candidate k is (row·GW + col)·A + a.
+    N = GH·GW·A ≤ MAX_N = 4096 on CUDA. Candidate k is (row·GW + col)·A + a.
     """
     if netout.dim() not in (4, 5):
         raise ValueError(f'netout must be ([F,] GH, GW, A, 5+C), got '
@@ -113,18 +154,22 @@ def decode_nms_fused(netout: torch.Tensor, anchors,
                                                nms_threshold)
     else:
         n = gh * gw * a
-        if n > MAX_N:
-            raise ValueError(f'decode_nms_fused takes at most {MAX_N} '
-                             f'candidates per frame, got {n}')
+        plan = launch_plan(f, n, d - 5)
         boxes = torch.empty(f, n, 4, dtype=torch.float32, device=x.device)
         scores = torch.empty(f, n, d - 5, dtype=torch.float32,
                              device=x.device)
+        mask = torch.empty(plan['scratch_bytes'] // 4, dtype=torch.int32,
+                           device=x.device)
+        dp, mp, wp = plan['decode'], plan['mask'], plan['walk']
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _launcher()(x.data_ptr(), anchors.data_ptr(),
-                              boxes.data_ptr(), scores.data_ptr(), f, gh,
-                              gw, a, d - 5, float(obj_threshold),
-                              float(nms_threshold), stream)
+                              boxes.data_ptr(), scores.data_ptr(),
+                              mask.data_ptr(), f, gh, gw, a, d - 5,
+                              float(obj_threshold), float(nms_threshold),
+                              dp['tile'], mp['rows'], wp['classes'],
+                              wp['tile_rows'], int(wp['frame_mask']),
+                              stream)
         if err != 0:
             raise RuntimeError(f'decode_nms_fused kernel launch failed: '
                                f'cudaError {err}')

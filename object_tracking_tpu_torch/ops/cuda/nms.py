@@ -1,26 +1,117 @@
-"""Batched greedy-NMS kernel for Hopper: wrapper, plain twin, launch count.
+"""Batched greedy-NMS kernel for Hopper: wrapper, launch plan, plain twin,
+launch count.
 
 Counterpart of the TPU kernel `object_tracking_tpu/ops/pallas/nms_pallas.py`
 (`nms_scores_pallas`, body `_nms_kernel`). The kernel is
-`csrc/nms_scores.cu`; its header says what bounds it on the H100 (the
-latency of the dependent walk, not bytes or operations) and how the design
-answers that (one block per frame, the IoU >= threshold relation as a
-shared-memory bitmask, one warp per class).
+`csrc/nms_scores.cu` on the design of `csrc/nms_common.cuh`; their notes
+say what bounds it on the H100 (the latency of each (frame, class) walk,
+not bytes or operations) and how the design answers that: a mask pass
+writes the IoU >= threshold relation as a bitmask over a grid that fills
+the card, and a walk pass runs one warp per (frame, class) as a sorted
+scan.
 
 `nms_scores` takes F frames at once, so a predict call makes ONE launch
-for all of its B·T frames. On a CPU tensor it runs `nms_scores_plain`, the
-same walk in PyTorch; on a CUDA tensor it launches the kernel or raises.
+(two kernel passes) for all of its B·T frames. On a CPU tensor it runs
+`nms_scores_plain`, the same walk in PyTorch; on a CUDA tensor it launches
+the kernel or raises. `launch_plan` chooses every size the launch uses, in
+plain Python that the CPU tests reach; the launcher derives each pass's
+shared memory from the plan's choices and refuses a plan that does not
+fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-MAX_K = 1024    # candidates per frame the kernel takes (32 words of 32)
+# The kernels' own constants (csrc/nms_common.cuh; tests/test_torch_nms_scan.py
+# holds these copies equal to them)
+MAX_K = 4096          # kMaxN: candidates per frame the kernels take
+SMEM_LIMIT = 232448   # kMaxSmem: shared memory a block may opt into (227 KB)
+MASK_THREADS = 256    # kMaskThreads: mask pass, 8 warps a block
+MAX_WALK_CLASSES = 8  # kMaxWalkWarps: walk pass, a warp per class, 8 a block
+BATCH = 16            # kBatch: loads in flight per thread
+SMS = 132             # streaming multiprocessors of an H100 SXM
 
 _fn = None
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def mask_plan(frames: int, n: int) -> dict:
+    """The mask pass: blocks of `rows` rows of one frame's bitmask, 32, 16
+    or 8 rows, the most that still gives two blocks per SM; the frame's
+    box corners in shared memory (5 floats a candidate)."""
+    rows = 32
+    while rows > 8 and frames * _ceil(n, rows) < 2 * SMS:
+        rows //= 2
+    return {'grid': (_ceil(n, rows), frames), 'threads': MASK_THREADS,
+            'rows': rows, 'smem': 5 * n * 4}
+
+
+def walk_smem(n: int, classes: int, tile_rows: int,
+              frame_mask: bool) -> int:
+    """Shared memory of a walk block, as csrc/nms_common.cuh::walk_smem
+    sizes the launch; here it chooses the plan. Per warp, the sort keys
+    (8 B a candidate, padded to a power of two),
+    32 staged mask rows, `removed`, `kept` and the 32 staged rows'
+    indices; the score tile, with an odd row stride; and with
+    `frame_mask`, the frame's whole bitmask."""
+    words = _ceil(n, 32)
+    return (8 * classes * _pow2(n) + 4 * classes * (34 * words + 32)
+            + 4 * tile_rows * (classes | 1)
+            + (4 * n * words if frame_mask else 0))
+
+
+def walk_plan(frames: int, n: int, c: int) -> dict:
+    """The walk pass: one warp per (frame, class), `classes` warps a block.
+    Fewer classes a block while the blocks do not fill the SMs or the
+    block does not fit in shared memory; then the tallest score tile that
+    fits, at most 1024 rows. Where the frame's whole bitmask is one load
+    a thread (K = 128: 512 words), the block copies it into shared memory
+    with its scores (`frame_mask`), so the scan never waits on device
+    memory; a larger mask is staged 32 rows at a time."""
+    classes = max(1, min(MAX_WALK_CLASSES, c))
+    while classes > 1 and (frames * _ceil(c, classes) < SMS
+                           or walk_smem(n, classes, 32, False)
+                           > SMEM_LIMIT):
+        classes -= 1
+    frame_mask = n * _ceil(n, 32) <= BATCH * 32 * classes
+    tile_rows = min(_ceil(n, 32) * 32, 1024)
+    while tile_rows > 32 and walk_smem(n, classes, tile_rows,
+                                       frame_mask) > SMEM_LIMIT:
+        tile_rows -= 32
+    return {'grid': (frames * _ceil(c, classes),),
+            'threads': 32 * classes, 'classes': classes,
+            'tile_rows': tile_rows, 'frame_mask': frame_mask,
+            'smem': walk_smem(n, classes, tile_rows, frame_mask)}
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(frames: int, k: int, c: int) -> dict:
+    """Every size of one `nms_scores` launch: each pass's grid, block,
+    tile and dynamic shared memory, and the bitmask scratch (F·K·⌈K/32⌉
+    words). Raises above MAX_K or where a pass would not fit. Cached per
+    shape, since every launch asks for it: treat the dict as read-only."""
+    if k > MAX_K:
+        raise ValueError(f'nms_scores takes at most {MAX_K} candidates per '
+                         f'frame, got {k}')
+    plan = {'mask': mask_plan(frames, k),
+            'walk': walk_plan(frames, k, c),
+            'scratch_bytes': frames * k * _ceil(k, 32) * 4}
+    for name in ('mask', 'walk'):
+        if plan[name]['smem'] > SMEM_LIMIT:
+            raise ValueError(f'nms_scores: the {name} pass needs '
+                             f'{plan[name]["smem"]} B of shared memory')
+    return plan
 
 
 def _launcher():
@@ -29,8 +120,10 @@ def _launcher():
         from object_tracking_tpu_torch.ops.cuda import _build
         fn = _build.load('nms_scores').nms_scores_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -116,8 +209,9 @@ def nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
 
     boxes (F, K, 4) center-format, scores (F, K, C) thresholded, both
     float32 and contiguous → (F, K, C) with suppressed scores zeroed.
-    CPU tensors run `nms_scores_plain`; CUDA tensors launch the kernel
-    (and count the launch in `nms_scores.launches`) or raise.
+    CPU tensors run `nms_scores_plain`; CUDA tensors launch the kernel's
+    two passes (and count one launch in `nms_scores.launches`) or raise;
+    K ≤ MAX_K on CUDA.
     """
     _check(boxes, scores)
     if boxes.device.type == 'cpu':
@@ -126,15 +220,18 @@ def nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f'nms_scores runs on cuda or cpu, not '
                          f'{boxes.device}')
     f, k, c = scores.shape
-    if k > MAX_K:
-        raise ValueError(f'nms_scores takes at most {MAX_K} candidates per '
-                         f'frame, got {k}')
+    plan = launch_plan(f, k, c)
     out = torch.empty_like(scores)
+    mask = torch.empty(plan['scratch_bytes'] // 4, dtype=torch.int32,
+                       device=boxes.device)
+    mp, wp = plan['mask'], plan['walk']
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = _launcher()(boxes.data_ptr(), scores.data_ptr(),
-                          out.data_ptr(), f, k, c, float(nms_threshold),
-                          stream)
+                          out.data_ptr(), mask.data_ptr(), f, k, c,
+                          float(nms_threshold), mp['rows'],
+                          wp['classes'], wp['tile_rows'],
+                          int(wp['frame_mask']), stream)
     if err != 0:
         raise RuntimeError(f'nms_scores kernel launch failed: '
                            f'cudaError {err}')

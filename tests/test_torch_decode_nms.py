@@ -29,6 +29,8 @@ HEADS = {
     '4x4x3x9': (4, SMALL_ANCHORS, 4, 1.5, 0.0, 4),
     '13x13x5x25': (13, YOLO_ANCHORS, 20, 3.0, 3.0, 200),
     '13x13x5x85': (13, YOLO_ANCHORS, 80, 4.0, 6.0, 200),
+    # 608² input: N = 1805, above the 1024 candidates the kernel once took
+    '19x19x5x25': (19, YOLO_ANCHORS, 20, 3.0, 3.0, 400),
 }
 
 

@@ -70,6 +70,72 @@ def test_plain_twin_equals_pallas_kernel_exactly(rng, thresh):
                                atol=1e-6, rtol=0)
 
 
+def test_plain_twin_equals_pallas_kernel_at_1805(rng):
+    """The 19x19x5 lattice (608² input): K = 1805 candidates, above the
+    1024 the CUDA kernels once took; the twin still equals the Pallas
+    kernel exactly, and the kernels' launch plan takes it."""
+    boxes, scores = _random_candidates(rng, n=1805, c=4)
+    scores[scores < 0.95] = 0.0              # ~90 live per class
+    ref = _pallas(boxes, scores, 0.45)
+    out = cuda_nms.nms_scores_plain(torch.from_numpy(boxes[None]),
+                                    torch.from_numpy(scores[None]), 0.45)
+    np.testing.assert_array_equal(out[0].numpy(), ref)
+    assert 0 < (ref > 0).sum() < (scores > 0).sum()
+    assert cuda_nms.launch_plan(1, 1805, 4)['walk']['smem'] <= \
+        cuda_nms.SMEM_LIMIT
+
+
+def _twin(boxes, scores, thresh=0.45):
+    return cuda_nms.nms_scores_plain(torch.from_numpy(boxes[None]),
+                                     torch.from_numpy(scores[None]),
+                                     thresh)[0].numpy()
+
+
+def _first_round(boxes, scores, thresh):
+    """The Pallas walk stopped after its first round: each class with a
+    positive score keeps its best candidate (first index on ties) and
+    kills the others whose IoU with it is >= thresh."""
+    ge = (cuda_nms.pallas_iou(torch.from_numpy(boxes[None]))[0]
+          >= thresh).numpy()
+    alive = np.ones_like(scores)
+    for c in range(scores.shape[1]):
+        if scores[:, c].max() > 0:
+            best = scores[:, c].argmax()
+            alive[ge[best], c] = 0.0
+            alive[best, c] = 1.0
+    return scores * alive
+
+
+@pytest.mark.parametrize('bad', ['nan', 'inf'])
+def test_non_finite_score_known_difference_from_pallas(rng, bad):
+    """A known difference, kept (ROADMAP queue 3). The Pallas loop runs
+    while the max of scores·alive·(1 − done) over the whole frame is > 0.
+    A NaN score makes that max NaN at once, so Pallas suppresses nothing
+    in any class. An inf score is picked first, and then inf·0 = NaN ends
+    the loop after that one round, in every class. The twin (like the
+    CUDA kernels, held to it on the card) skips only a NaN's class and
+    walks an inf's class to its end; its other classes come out as on
+    finite input."""
+    boxes, scores = _random_candidates(rng, n=48, c=4)
+    bad_scores = scores.copy()
+    bad_scores[5, 1] = np.nan if bad == 'nan' else np.inf
+    ref = _pallas(boxes, bad_scores, 0.45)
+    out = _twin(boxes, bad_scores)
+    others = [0, 2, 3]
+    finite = _twin(boxes, scores)
+    np.testing.assert_array_equal(out[:, others], finite[:, others])
+    if bad == 'nan':
+        np.testing.assert_array_equal(ref, bad_scores)
+        np.testing.assert_array_equal(out[:, 1], bad_scores[:, 1])
+    else:
+        np.testing.assert_array_equal(ref, _first_round(boxes, bad_scores,
+                                                        0.45))
+        assert out[5, 1] == np.inf and ref[5, 1] == np.inf
+    # the difference: Pallas suppresses less in the finite classes
+    assert ((out[:, others] == 0) & (ref[:, others] > 0)).any()
+    assert not ((ref[:, others] == 0) & (out[:, others] > 0)).any()
+
+
 @pytest.mark.parametrize('impl', ['sort', 'matmul', 'twin'])
 def test_all_dead(rng, impl):
     boxes, scores = _random_candidates(rng, n=16, c=3)
