@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and detector paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, detector and training paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -52,17 +52,40 @@ JSON line:
    sigmoid and exp against torch's; device times at F=8 and F=1, summed
    over its three passes (decode, mask, walk) and split by pass, its host
    cost per call, the twin's and the staged path's times, and the bound;
-8. the kernels line (each kernel's launches on the driven paths, error,
+8. train: the joint trainer's fused step (make_joint_train_step_fused:
+   /255, augmentation, target encoding, forward, backward and Adam on the
+   card) at bench.py's model, flax-like init from seed 0, on seeded raw
+   uint8 windows of filled rectangles (max_boxes 50). A reduced model
+   (width_div=8, 128², T=4, B=2, no augmentation) takes one float32 step
+   on the card and on the CPU from the same weights and batch: metrics,
+   gradients, updated parameters and BatchNorm statistics agree within
+   the CPU parity tests' tolerances; a checkpoint saved after step 2 and
+   restored into a fresh state gives step 3 equal to 1e-6 (cuDNN
+   deterministic for that check only). At full width: one step under
+   torch.cuda.set_sync_debug_mode('error'); 30 steps on one fixed batch
+   (B=1, float32, lr 1e-4) with a finite, falling loss; the trained
+   model serves three predict_window calls through JointPredictor, kernel
+   1 launching once per call, identical to nms_impl='sort'; then, from
+   those weights at lr 0 over 4 unseen batches, each configuration alone
+   on the card, steps/s at B=1 and B=4 in float32 and bfloat16 (median of
+   three samples, all kept), the first step's time, peak memory, every
+   step's loss (finite), and each step's device time by category under
+   torch.profiler;
+9. the kernels line (each kernel's launches on the driven paths, error,
    times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import gc
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -75,13 +98,16 @@ from object_tracking_tpu_torch.evaluation import evaluate_detection
 from object_tracking_tpu_torch.inference import JointPredictor
 from object_tracking_tpu_torch.models import (
     CfgDetector, MultiObjDetTracker, VGG16PriorSource, YOLOv2Detector)
-from object_tracking_tpu_torch.models.darknet19 import BatchNorm
+from object_tracking_tpu_torch.models.darknet19 import BatchNorm, init_like_flax
 from object_tracking_tpu_torch.ops.boxes import iou_center
 from object_tracking_tpu_torch.ops.cuda import _build
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
 from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
+from object_tracking_tpu_torch.training import (
+    CheckpointManager, TrainState, make_joint_train_step_fused,
+    make_optimizer)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -138,28 +164,99 @@ def host_us(fn, iters: int) -> float:
     return took / iters * 1e6
 
 
-def device_times(fn, iters: int) -> dict:
+def device_times(fn, iters: int, model=None) -> dict:
     """Device time of fn() by kernel name under torch.profiler:
-    {name: [launches per call, device ms per call]}; empty when the
-    profiler recorded no device activity (one retry)."""
+    {name: [launches per call, device ms per call]}, user annotations
+    left out; empty when the profiler recorded no device activity (one
+    retry). With `model`, the kernels that its BatchNorm layers launch,
+    in forward and in backward, are keyed 'batch_norm: <name>': the
+    port's BatchNorm is plain tensor ops, whose kernels' names do not say
+    BatchNorm."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        ranges = (batch_norm_ranges(model) if model is not None
+                  else contextlib.nullcontext())
+        with ranges, profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        # a user annotation (the optimizer's 'Optimizer.step#Adam.step',
+        # the BatchNorm ranges) spans kernels that are counted on their own
         kernels = {evt.key: [evt.count / iters,
                              evt.device_time_total / 1e3 / iters]
                    for evt in prof.key_averages()
                    if evt.device_type == DeviceType.CUDA
-                   and evt.device_time_total > 0}
+                   and evt.device_time_total > 0
+                   and not getattr(evt, 'is_user_annotation', False)}
         if kernels:
+            if model is not None:
+                for name, (n, ms) in batch_norm_kernels(
+                        prof.events()).items():
+                    if name in kernels:
+                        rest = kernels[name]
+                        rest[0] -= n / iters
+                        rest[1] -= ms / iters
+                        kernels['batch_norm: ' + name] = [n / iters,
+                                                          ms / iters]
             return kernels
     return {}
+
+
+BN_RANGE = 'BatchNorm'
+
+
+@contextlib.contextmanager
+def batch_norm_ranges(model):
+    """Every BatchNorm forward of `model` inside a profiler range named
+    BN_RANGE, by module hooks (the package itself records no range)."""
+    from torch.profiler import record_function
+    open_ranges = []
+
+    def enter(module, args):
+        open_ranges.append(record_function(BN_RANGE))
+        open_ranges[-1].__enter__()
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            hooks += [m.register_forward_pre_hook(enter),
+                      m.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def batch_norm_kernels(events) -> dict:
+    """{kernel name: [launches, device ms]} over the profiled calls, of
+    the kernels launched by ops inside BN_RANGE ranges and by the
+    backward nodes of those ops (matched by autograd sequence number)."""
+    def chain(evt):
+        while evt is not None:
+            yield evt
+            evt = evt.cpu_parent
+    forward = {e.sequence_nr for e in events
+               if e.sequence_nr >= 0 and any(a.name == BN_RANGE
+                                             for a in chain(e))}
+    owned: dict = {}
+    for e in events:
+        if not e.kernels or not any(
+                a.name == BN_RANGE
+                or (a.name.startswith('autograd::engine::evaluate_function')
+                    and a.sequence_nr in forward) for a in chain(e)):
+            continue
+        for k in e.kernels:
+            acc = owned.setdefault(k.name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += k.duration / 1e3
+    return owned
 
 
 def op_device_ms(fn, fragment: str, iters: int) -> dict:
@@ -187,7 +284,20 @@ CATEGORIES = (
 )
 
 
-def breakdown(kernels: dict, wall_ms: float) -> dict:
+# the same for a training step; cuDNN names its backward kernels dgrad
+# (input gradient) and wgrad (filter gradient)
+TRAIN_CATEGORIES = (
+    ('batch_norm', ('batch_norm', 'batchnorm', 'bn_fw', 'bn_bw', 'welford')),
+    ('conv_backward', ('dgrad', 'wgrad', 'bprop', 'backward_data',
+                       'backward_filter', 'bwd')),
+    ('conv_forward', CATEGORIES[2][1] + ('fprop',)),
+    ('optimizer', ('multi_tensor_apply', 'adam')),
+    ('memcpy', ('memcpy', 'memset')),
+)
+
+
+def breakdown(kernels: dict, wall_ms: float,
+              categories=CATEGORIES) -> dict:
     """Device time of one call by category, its busy and idle share of
     the call's wall time, and the six costliest kernels."""
     if not kernels:
@@ -196,7 +306,7 @@ def breakdown(kernels: dict, wall_ms: float) -> dict:
     cats: dict = {}
     for name, (n, ms) in kernels.items():
         low = name.lower()
-        cat = next((c for c, keys in CATEGORIES
+        cat = next((c for c, keys in categories
                     if any(k in low for k in keys)), 'other')
         acc = cats.setdefault(cat, [0.0, 0.0])
         acc[0] += n
@@ -421,7 +531,7 @@ def path_phase(device, smi: str) -> dict:
     torch.manual_seed(0)
     model = MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
                                convlstm_features=512, width_div=1)
-    model = model.to(device)
+    model = model.to(device).eval()       # serving: no statistic written
     rng = np.random.RandomState(1)
     batch_reqs = requests(rng, 8, 3)
     window_reqs = requests(rng, 1, 3)
@@ -462,7 +572,7 @@ def path_phase(device, smi: str) -> dict:
             call = (lambda c=clips, p=pred: p.predict_batch(c)) \
                 if batch > 1 else \
                 (lambda c=clips, p=pred: p.predict_window(c[0]))
-            profiles[key] = breakdown(device_times(call, 2),
+            profiles[key] = breakdown(device_times(call, 2, m),
                                       1e3 * batch * T / median)
     return {'phase': 'path', 'net': NET, 'T': T, 'classes': NUM_CLASSES,
             'anchors': 5, 'convlstm_features': 512, 'width_div': 1,
@@ -536,7 +646,8 @@ def detector_phase(device, smi: str):
             key = f'n{n}_{name}'
             median = put_rate(rates, f'images_per_s_{key}',
                               rate(call, n, 10))
-            profiles[key] = breakdown(device_times(call, 2), 1e3 * n / median)
+            profiles[key] = breakdown(device_times(call, 2, d.model),
+                                      1e3 * n / median)
     return {'phase': 'detector', 'net': cfg.image_h,
             'classes': cfg.num_classes, 'anchors': cfg.num_anchors,
             'width_div': cfg.width_div, 'obj_threshold': cfg.obj_threshold,
@@ -778,6 +889,290 @@ def decode_nms_phase(device, netout: torch.Tensor, obj: float) -> dict:
             **decode_nms_bound(scores, n, c, netout.shape[0])}
 
 
+# ------------------------------------------------------------ training path
+MAX_BOXES = 50
+TRAIN_LR = 1e-4
+# parity tolerances of the CPU tests against JAX (tests/test_torch_steps.py):
+# metrics, per-leaf relative L2 (gradients and the parameters after the
+# step), running statistics
+METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-6
+LEAF_TOL = 1e-3
+STATS_RTOL, STATS_ATOL = 1e-4, 1e-7
+
+
+def train_batch(seed: int, batch: int, net: int = 0, objects: int = 8
+                ) -> dict:
+    """A seeded raw batch as SequenceBatches(raw_mode=True) gives it: dark
+    noise frames with `objects` filled rectangles per window, each of a
+    class colour, drifting from frame to frame; their boxes are the
+    labels. `net` 0 is NET."""
+    net, t = net or NET, T
+    rng = np.random.RandomState(seed)
+    colours = np.random.RandomState(123).randint(80, 256, (NUM_CLASSES, 3))
+    images = rng.randint(0, 60, (batch, t, net, net, 3)).astype(np.uint8)
+    boxes = np.zeros((batch, t, MAX_BOXES, 4), np.float32)
+    cls = np.zeros((batch, t, MAX_BOXES), np.int32)
+    valid = np.zeros((batch, t, MAX_BOXES), bool)
+    lo, hi = net // 16, net // 3
+    for b in range(batch):
+        for k in range(objects):
+            c = rng.randint(NUM_CLASSES)
+            w, h = rng.randint(lo, hi, 2)
+            x, y = rng.randint(0, net - w), rng.randint(0, net - h)
+            vx, vy = rng.randint(-6, 7, 2)
+            for f in range(t):
+                x1 = int(np.clip(x + vx * f, 0, net - w))
+                y1 = int(np.clip(y + vy * f, 0, net - h))
+                images[b, f, y1:y1 + h, x1:x1 + w] = colours[c]
+                boxes[b, f, k] = (x1, y1, x1 + w, y1 + h)
+                cls[b, f, k] = c
+                valid[b, f, k] = True
+    return {'images_u8': images, 'boxes': boxes, 'cls': cls, 'valid': valid,
+            'aug_seeds': rng.randint(0, 2**31 - 1, batch).astype(np.uint32)}
+
+
+def train_step_fn(net: int, augment: bool):
+    return make_joint_train_step_fused(
+        YOLOV2_ANCHORS, augment=augment, net_h=net, net_w=net,
+        grid_h=net // 32, grid_w=net // 32, num_classes=NUM_CLASSES,
+        true_box_buffer=MAX_BOXES)
+
+
+def train_state(device, width_div: int = 1, dtype=torch.float32,
+                seed: int = 0) -> TrainState:
+    model = init_like_flax(MultiObjDetTracker(
+        num_classes=NUM_CLASSES, num_anchors=5,
+        convlstm_features=512 // width_div, width_div=width_div,
+        dtype=dtype), seed)
+    return TrainState.create(model.to(device), make_optimizer(TRAIN_LR))
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm()
+                 / max(float(b.double().norm()), 1e-30))
+
+
+def card_matches_cpu(device) -> dict:
+    """One fused float32 step without augmentation of a reduced model
+    (width_div=8, 128², T=4, B=2) on the card and on the CPU, from the
+    same weights and batch: metrics, gradients, updated parameters and
+    BatchNorm statistics within the CPU parity tests' tolerances."""
+    net = 128
+    raw = train_batch(5, 2, net=net, objects=4)
+    cpu = train_state('cpu', width_div=8)
+    card = TrainState.create(copy.deepcopy(cpu.model).to(device),
+                             make_optimizer(TRAIN_LR))
+    step = train_step_fn(net, augment=False)
+    init = {n: p.detach().clone() for n, p in cpu.model.named_parameters()}
+    _, m_cpu = step(cpu, raw)
+    _, m_card = step(card, raw)
+    torch.cuda.synchronize()
+    metrics = {k: [float(m_card[k]), float(m_cpu[k])] for k in m_cpu}
+    bad = [k for k, (a, b) in metrics.items()
+           if abs(a - b) > METRIC_ATOL + METRIC_RTOL * abs(b)]
+    card_p = dict(card.model.named_parameters())
+    grads = {n: rel_l2(card_p[n].grad.cpu(), p.grad)
+             for n, p in cpu.model.named_parameters()}
+    params = {n: rel_l2(card_p[n].detach().cpu(), p.detach())
+              for n, p in cpu.model.named_parameters()}
+    updates = {n: float((card_p[n].detach().cpu() - p.detach()).norm())
+               / (TRAIN_LR * p.numel() ** 0.5)
+               for n, p in cpu.model.named_parameters()}
+    card_b = dict(card.model.named_buffers())
+    stats = {n: float(((card_b[n].cpu() - b).abs()
+                       / (STATS_ATOL + STATS_RTOL * b.abs())).max())
+             for n, b in cpu.model.named_buffers()}
+    moved = sum(not torch.equal(init[n], p.detach())
+                for n, p in cpu.model.named_parameters())
+    out = {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8},
+           'metrics_card_cpu': metrics, 'metrics_out_of_tol': bad,
+           'grad_rel_l2_max': max(grads.values()),
+           'grad_rel_l2_worst': max(grads, key=grads.get),
+           'param_rel_l2_max': max(params.values()),
+           'param_rel_l2_worst': max(params, key=params.get),
+           'update_rms_err_over_lr_max': max(updates.values()),
+           'stats_err_over_tol_max': max(stats.values()),
+           'params_moved': moved, 'params': len(params),
+           'tolerance': {'metrics_rtol': METRIC_RTOL,
+                         'metrics_atol': METRIC_ATOL,
+                         'grad_rel_l2': LEAF_TOL, 'param_rel_l2': LEAF_TOL,
+                         'stats_rtol': STATS_RTOL, 'stats_atol': STATS_ATOL}}
+    if (bad or out['grad_rel_l2_max'] > LEAF_TOL
+            or out['param_rel_l2_max'] > LEAF_TOL
+            or out['stats_err_over_tol_max'] > 1.0 or moved != len(params)):
+        raise AssertionError(f'card and CPU steps disagree: {out}')
+    return out
+
+
+def checkpoint_round_trip(device) -> dict:
+    """Save after step 2, restore into a fresh state; step 3 from each
+    state must agree to 1e-6 (cuDNN deterministic for this check only)."""
+    net = 128
+    raws = [train_batch(10 + i, 2, net=net, objects=4) for i in range(3)]
+    step = train_step_fn(net, augment=True)
+    state = train_state(device, width_div=8)
+    for raw in raws[:2]:
+        state, _ = step(state, raw)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save(2, state)
+            fresh, at = mgr.restore(train_state(device, width_div=8, seed=1))
+            _, m_a = step(state, raws[2])
+            _, m_b = step(fresh, raws[2])
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(
+        state.model.state_dict().values(), fresh.model.state_dict().values()))
+    metric_diff = max(abs(float(m_a[k]) - float(m_b[k])) for k in m_a)
+    out = {'restored_at': at, 'steps': [state.step, fresh.step],
+           'max_abs_diff_state': param_diff,
+           'max_abs_diff_metrics': metric_diff, 'tolerance': 1e-6,
+           'cudnn_deterministic': 'this check only'}
+    if at != 2 or fresh.step != 3 or max(param_diff, metric_diff) > 1e-6:
+        raise AssertionError(f'checkpoint round trip: {out}')
+    return out
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) * 1e3
+
+
+def train_readings(state, step, batches, key: str, readings: dict) -> None:
+    """One configuration: the first step's time (host clock, synchronised),
+    steps/s (median of three samples of 5 steps, all kept), the step's
+    device profile, the peak memory, and the loss of every step taken,
+    pulled once at the end. The steps cycle through `batches`, as a
+    training run sees a new batch each step."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, turn = [], [0]
+
+    def call():
+        raw = batches[turn[0] % len(batches)]
+        turn[0] += 1
+        losses.append(step(state, raw)[1]['loss'])
+    _, first_ms = timed(call)
+    out = {'first_step_ms': first_ms}
+    median = put_rate(out, 'steps_per_s', rate(call, 1, 5))
+    out['profile'] = breakdown(device_times(call, 2, state.model),
+                               1e3 / median,
+                               TRAIN_CATEGORIES)
+    out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
+    out['losses'] = torch.stack(losses).cpu().tolist()
+    readings[key] = out
+    if not np.isfinite(out['losses']).all():
+        raise AssertionError(f'non-finite loss at {key}: {out["losses"]}')
+
+
+def train_phase(device, smi: str) -> dict:
+    """The joint trainer's fused step at bench.py's model on the card."""
+    parity = card_matches_cpu(device)
+    round_trip = checkpoint_round_trip(device)
+
+    state = train_state(device)
+    step = train_step_fn(NET, augment=True)
+    fixed = train_batch(0, 1)
+    # it learns: 30 steps on one fixed batch, the second under sync-debug
+    # mode 'error' (any host sync in the step raises)
+    losses = []
+    for i in range(30):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            if i == 0:
+                (_, metrics), first_ms = timed(lambda: step(state, fixed))
+            else:
+                _, metrics = step(state, fixed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(metrics['loss'])
+    trajectory = torch.stack(losses).cpu().tolist()
+    first5, last5 = np.mean(trajectory[:5]), np.mean(trajectory[-5:])
+    if not (np.isfinite(trajectory).all() and last5 < first5):
+        raise AssertionError(f'training did not learn: {trajectory}')
+
+    serve_out = serve_trained(state.model, device)
+
+    # readings: each configuration starts from the weights the 30 steps
+    # left and cycles through 4 batches it has not seen, at lr 0: every
+    # kernel of a step still runs (Adam scales its update by 0), and the
+    # four configurations time one set of weights. At lr 1e-4 the
+    # from-scratch loss spikes on unseen batches (exp(tw) in the wh term,
+    # up to ~1e8 in the first 20 steps), and one run's bfloat16 steps
+    # overflowed to a non-finite loss. Only the configuration measured
+    # lives on the card, so its peak memory is its own.
+    weights = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state, metrics, losses
+    gc.collect()
+    readings = {}
+    for name, dtype in (('float32', torch.float32),
+                        ('bfloat16', torch.bfloat16)):
+        for batch in (1, 4):
+            config = train_state(device, dtype=dtype).with_learning_rate(0.0)
+            config.model.load_state_dict(weights)
+            batches = [train_batch(100 * batch + i, batch) for i in range(4)]
+            train_readings(config, step, batches, f'b{batch}_{name}',
+                           readings)
+            del config
+            gc.collect()
+    readings['b1_float32']['first_step_ms_untrained'] = first_ms
+
+    return {'phase': 'train', 'net': NET, 'T': T, 'classes': NUM_CLASSES,
+            'anchors': 5, 'convlstm_features': 512, 'width_div': 1,
+            'max_boxes': MAX_BOXES, 'lr': TRAIN_LR, 'readings_lr': 0.0,
+            'augment': True,
+            'card_vs_cpu': parity, 'checkpoint': round_trip,
+            'sync_debug_step': 'no sync raised',
+            'loss_trajectory': trajectory,
+            'loss_first5_mean': first5, 'loss_last5_mean': last5,
+            'readings': readings, 'serve': serve_out, 'card': smi}
+
+
+def serve_trained(model, device) -> dict:
+    """Train → serve: the trained model in JointPredictor, three
+    predict_window calls; kernel 1 launches once per call, and
+    nms_impl='sort' gives identical detections and ids."""
+    model.eval()
+    clips = [train_batch(20 + i, 1)['images_u8'].astype(np.float32) / 255.0
+             for i in range(3)]
+    obj_threshold = pick_obj_threshold(model, np.concatenate(clips), device)
+    kwargs = dict(labels=LABELS_MOT17, obj_threshold=obj_threshold,
+                  nms_threshold=NMS_THRESHOLD, net_size=(NET, NET),
+                  device=device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernel_pred = JointPredictor(model, YOLOV2_ANCHORS, nms_impl='auto',
+                                     **kwargs)
+        cuda_nms.nms_scores.launches = 0
+        frames = []
+        for i, clip in enumerate(clips):
+            frames.extend(kernel_pred.predict_window(clip[0]))
+            if cuda_nms.nms_scores.launches != i + 1:
+                raise AssertionError('nms_scores did not launch once per '
+                                     'predict_window call')
+        launches = cuda_nms.nms_scores.launches
+        sort_pred = JointPredictor(model, YOLOV2_ANCHORS, nms_impl='sort',
+                                   **kwargs)
+        sort_frames = []
+        for clip in clips:
+            sort_frames.extend(sort_pred.predict_window(clip[0]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if sort_frames != frames:
+        raise AssertionError("trained model: impl='kernel' and 'sort' "
+                             'disagree')
+    return {'predict_window_calls': len(clips), 'nms_launches': launches,
+            'obj_threshold': obj_threshold, 'kernel_equals_sort': True,
+            **check_results(frames, obj_threshold)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -812,10 +1207,13 @@ def main() -> int:
     emit(golden)
     dn = decode_nms_phase(device, netout, obj)
     emit({'phase': 'decode_nms', **dn, 'card': smi})
+    train = train_phase(device, smi)
+    emit(train)
 
     nms_launches = {'joint_path': path['nms_launches'],
                     'detector_path': detector['nms_launches'],
-                    'golden_detectors': golden['nms_launches']}
+                    'golden_detectors': golden['nms_launches'],
+                    'train_to_serve': train['serve']['nms_launches']}
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']

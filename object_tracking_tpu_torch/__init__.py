@@ -4,11 +4,17 @@ The JAX package `object_tracking_tpu/` stays the reference; this package
 imports nothing of it and nothing of JAX. Module layout mirrors it:
 
 - `config.py`: anchors, the track gate, label sets, config fields;
-- `ops/`: box math, decode, greedy NMS (with the hand-written CUDA kernel
-  under `ops/cuda/`), track-identity assignment;
-- `models/`: Darknet-19, the ConvLSTM and the joint detect+track model;
-- `convert.py`: flax variables (as numpy) → torch state_dict;
-- `inference.py`: `JointPredictor`, the serving entry point.
+- `ops/`: box math, decode, greedy NMS (with the hand-written CUDA kernels
+  under `ops/cuda/`), track-identity assignment, YOLO target encoding;
+- `models/`: Darknet-19, the ConvLSTM, the joint detect+track model, the
+  detector surfaces and the losses;
+- `data/`: annotations, windows, augmentation, batch generators, the
+  synthetic dataset;
+- `training/`: train state and Adam, train/eval steps, the fit loop,
+  callbacks, checkpoints, metric logging;
+- `convert.py`: flax variables and train states (as numpy) → torch;
+- `inference.py`: `JointPredictor`, the serving entry point;
+- `trainer.py`: the joint training flow.
 
 Entry points run on CUDA unless the caller passes `device='cpu'`.
 """

@@ -1,14 +1,17 @@
-"""Constants and config fields of the serving and detector paths.
+"""Constants and config fields of the serving, detector and training paths.
 
 The port keeps its own copy of what it reads from the JAX package's
 `object_tracking_tpu/config.py` (anchors, the track gate, the COCO and
-MOT17 label sets, and the `DetectorConfig` / `JointConfig` fields the port
-uses), so that importing it never imports the JAX package.
+MOT17 label sets, and the `DetectorConfig`, `LossConfig`, `JointConfig` and
+`TrainConfig` fields the port uses), so that importing it never imports the
+JAX package. `Config` holds the four; the tracker and mesh sections wait
+for the single-object flow and the parallel paths (ROADMAP.md queue 1,
+items 13 and 16).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 # Anchor priors (grid-cell units) — YOLOv2 COCO anchors.
@@ -66,10 +69,85 @@ class DetectorConfig:
 
 
 @dataclass
+class LossConfig:
+    """YOLOv2 loss scales."""
+    no_object_scale: float = 1.0
+    object_scale: float = 5.0
+    coord_scale: float = 1.0
+    class_scale: float = 1.0
+    warm_up_batches: int = 0
+    true_box_buffer: int = 50
+    best_iou_threshold: float = 0.6
+
+
+@dataclass
 class JointConfig:
-    """Joint detect+track model fields read by the serving path."""
+    """Joint detect+track model and training fields."""
     labels: Tuple[str, ...] = LABELS_MOT17
+    batch_size: int = 1
     sequence_length: int = 4
     convlstm_features: int = 512
+    loss_weight_track: float = 0.7
+    loss_weight_detect: float = 0.3
     # 'bfloat16' activations (parameters stay float32) or 'float32'.
     compute_dtype: str = 'float32'
+    # Recompute the per-frame detector in backward (activation memory for
+    # FLOPs, so that sequence_length can grow).
+    remat: bool = False
+    # Options of the JAX model that the port does not have yet; the
+    # trainer raises NotImplementedError when one is set.
+    moe_experts: int = 0
+    moe_aux_weight: float = 0.01
+    time_shards: int = 1
+    convlstm_layers: int = 1
+
+
+@dataclass
+class TrainConfig:
+    """Training hyperparameters and the callback stack."""
+    train_image_folder: str = 'data/VisualTB/'
+    train_annot_folder: str = 'data/VisualTBAnn/train/'
+    val_image_folder: str = 'data/VisualTB/'
+    val_annot_folder: str = 'data/VisualTBAnn/val/'
+    batch_size: int = 4
+    max_epochs: int = 100
+    learning_rate: float = 1e-3
+    joint_learning_rate: float = 1e-4
+    # Global-norm gradient clipping (optax's clip_by_global_norm rule);
+    # None disables.
+    grad_clip_norm: Optional[float] = None
+    early_stop_patience: int = 10
+    reduce_lr_factor: float = 0.5
+    reduce_lr_patience: int = 5
+    # Plateau patience of the joint flow.
+    joint_reduce_lr_patience: int = 2
+    min_lr: float = 1e-5
+    tensorboard_dir: str = 'logs/'
+    saved_model_dir: str = 'models/'
+    classes: Tuple[str, ...] = ('Person', 'Car')
+    # Keeps the legacy host pipeline (augmented pixels on the host).
+    debug: bool = False
+    seed: int = 0
+    max_boxes_per_image: int = 50
+    resume: bool = False
+    # Learning rate to set after a resume (the restored one otherwise).
+    resume_lr: Optional[float] = None
+    checkpoint_dir: str = 'checkpoints/'
+    # Save every N epochs; the final epoch always saves.
+    checkpoint_every_epochs: int = 1
+    augment: bool = True
+    log_every_steps: int = 1
+    # Non-empty enables the parsed-annotation pickle cache.
+    annotation_cache_dir: str = ''
+    # True: raw uint8 batches and the fused steps (normalise, augment,
+    # encode targets, forward, backward and Adam on the device); False:
+    # the legacy host pipeline.
+    device_data: bool = True
+
+
+@dataclass
+class Config:
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    joint: JointConfig = field(default_factory=JointConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

@@ -20,6 +20,12 @@ module has and the tree lacks.
 
 `to_flax` is its inverse: a state_dict → the same nested numpy tree, which
 the darknet exporters (`ops/weights.py`, `models/darknet_cfg.py`) write.
+
+`load_flax_train_state` carries a JAX `TrainState` into the port's: the
+step, params and batch stats, and Adam's `count`, `mu` and `nu` (optax's
+`ScaleByAdamState`, whose trees take the params' transposes) with the
+injected learning rate, so that a JAX run resumed in the port continues
+the same trajectory.
 """
 
 from __future__ import annotations
@@ -53,6 +59,19 @@ def _tensor(path: Tuple[str, ...], leaf: str, value: np.ndarray):
     return torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
 
 
+def _collection(tree, collection: str, rules, state, norms) -> None:
+    """Map one flax collection's leaves into `state` (name → tensor),
+    adding each BatchNorm's module name to `norms`."""
+    for path, value in _leaves(tree):
+        *module, leaf = path
+        if leaf not in rules:
+            raise KeyError(f'unused key {collection}/{"/".join(path)}')
+        if leaf in ('scale', 'mean', 'var'):
+            norms.add('.'.join(module))
+        name = '.'.join(module + [rules[leaf]])
+        state[name] = _tensor(path, leaf, value)
+
+
 def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """flax {'params', 'batch_stats'} (numpy leaves) → torch state_dict."""
     unknown = set(variables) - {'params', 'batch_stats'}
@@ -62,14 +81,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     norms = set()
     for collection, rules in (('params', _PARAM_LEAVES),
                               ('batch_stats', _STAT_LEAVES)):
-        for path, value in _leaves(variables.get(collection, {})):
-            *module, leaf = path
-            if leaf not in rules:
-                raise KeyError(f'unused key {collection}/{"/".join(path)}')
-            if leaf in ('scale', 'mean', 'var'):
-                norms.add('.'.join(module))
-            name = '.'.join(module + [rules[leaf]])
-            state[name] = _tensor(path, leaf, value)
+        _collection(variables.get(collection, {}), collection, rules, state,
+                    norms)
     for norm in sorted(norms):
         missing = [k for k in _NORM_KEYS if f'{norm}.{k}' not in state]
         if missing:
@@ -106,3 +119,37 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     if not tree['batch_stats']:
         del tree['batch_stats']
     return tree
+
+
+def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A tree shaped like flax 'params' (the params, their gradients, or
+    Adam's moments; numpy leaves) → {parameter name: tensor}, with the
+    parameters' transposes and no BatchNorm statistics."""
+    named: Dict[str, torch.Tensor] = {}
+    _collection(tree, 'params', _PARAM_LEAVES, named, set())
+    return named
+
+
+def load_flax_train_state(state, *, step, params: Dict, batch_stats: Dict,
+                          count, mu: Dict, nu: Dict, learning_rate: float):
+    """Load a JAX TrainState, given as numpy (`step`; `params` and
+    `batch_stats` trees; the optax Adam state's `count`, `mu` and `nu`,
+    trees shaped like `params`; the injected `learning_rate`), into the
+    port's `state` (a `training.state.TrainState`), in place; returns it.
+
+    Adam's first and second moments take the same HWIO → OIHW transposes
+    as their parameters; each parameter's Adam step is `count`."""
+    state.model.load_state_dict(
+        from_flax({'params': params, 'batch_stats': batch_stats}),
+        strict=True)
+    moments = [params_from_flax(mu), params_from_flax(nu)]
+    opt = state.optimizer
+    for name, p in state.model.named_parameters():
+        opt.state[p] = {
+            'step': torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            'exp_avg': moments[0][name].to(p.device),
+            'exp_avg_sq': moments[1][name].to(p.device)}
+    state.with_learning_rate(float(np.asarray(learning_rate)))
+    state.step = int(np.asarray(step))
+    return state

@@ -1,0 +1,17 @@
+"""Data layer of the joint pipeline: annotation parsing, sequence windows,
+augmentation, batch generators and the synthetic dataset.
+
+Host side stays numpy (+ cv2 for image files, imported at use); the
+augmentation and target encoding that feed the loss are tensor ops that
+run on the device inside the fused train step.
+"""
+
+from object_tracking_tpu_torch.data.voc import (  # noqa: F401
+    Annotation, ObjectAnnotation, parse_annotation, parse_annotation_dir,
+)
+from object_tracking_tpu_torch.data.windows import make_sequence_windows  # noqa: F401
+from object_tracking_tpu_torch.data.augment import (  # noqa: F401
+    AugmentConfig, augment_frame, augment_sequence, apply_params,
+    draw_params,
+)
+from object_tracking_tpu_torch.data.generators import SequenceBatches  # noqa: F401

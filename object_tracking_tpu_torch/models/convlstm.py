@@ -44,11 +44,17 @@ class FusedConvLSTM(nn.Module):
         self.features = features
         self.dtype = dtype
         self.input_proj = nn.Conv2d(in_channels, 4 * features, kernel)
-        with torch.no_grad():
-            self.input_proj.bias.zero_()
-            self.input_proj.bias[features:2 * features] = 1.0
         self.recurrent_kernel = nn.Parameter(
             torch.empty(4 * features, features, kernel, kernel))
+        self.reset_recurrent_parameters()
+
+    @torch.no_grad()
+    def reset_recurrent_parameters(self) -> None:
+        """Forget-gate bias +1 (the other gates' biases 0) and an
+        orthogonal recurrent kernel, as the JAX layer initialises them."""
+        f = self.features
+        self.input_proj.bias.zero_()
+        self.input_proj.bias[f:2 * f] = 1.0
         nn.init.orthogonal_(self.recurrent_kernel)
 
     def forward(self, x: torch.Tensor,

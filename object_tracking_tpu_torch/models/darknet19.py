@@ -8,9 +8,12 @@ conv reshaped to (H/32, W/32, A, 5+C).
   as (B, H/32, W/32, A, 5+C) / (B, H/32, W/32, 1024), the JAX layouts.
 - `dtype` is the activation type (float32 or bfloat16); parameters stay
   float32 and are cast at each conv, and the two outputs are float32.
-- BatchNorm uses flax's epsilon (1e-3). `train=True` normalises with the
-  batch statistics and writes no running statistics (the serving path's
-  bn_mode='batch'); `train=False` uses the running statistics.
+- BatchNorm uses flax's epsilon (1e-3) and momentum (0.99). `train=True`
+  normalises with the batch statistics; it also folds them into the
+  running statistics when the module is in `train()` mode (a training
+  step), and writes nothing in `eval()` mode (the serving path's
+  bn_mode='batch', the eval steps). `train=False` uses the running
+  statistics.
 - `space_to_depth_2x` orders channels (di, dj, c), as tf.space_to_depth
   does — not `F.pixel_unshuffle`'s (c, di, dj).
 """
@@ -46,10 +49,54 @@ def seeded(seed: int, build):
         return build()
 
 
+# flax's lecun_normal: a normal truncated at ±2 standard deviations, scaled
+# by this constant so that its standard deviation is sqrt(1 / fan_in)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module, seed: int) -> nn.Module:
+    """Initialise `module` in place as flax initialises the JAX model, with
+    torch's RNG seeded by `seed` (JAX's PRNG stream cannot be reproduced):
+    every conv kernel lecun_normal (truncated normal, fan-in, std
+    sqrt(1/fan_in)), biases 0, BatchNorm scale 1, bias 0 and statistics
+    (0, 1); each ConvLSTM keeps a forget-gate bias of +1 and an orthogonal
+    recurrent kernel. torch's default conv init has a third of that
+    variance. Returns `module`."""
+    def build():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNCATED_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        for m in module.modules():
+            reset = getattr(m, 'reset_recurrent_parameters', None)
+            if reset is not None:
+                reset()
+        return module
+    return seeded(seed, build)
+
+
 class BatchNorm(nn.Module):
-    """Inference-time BatchNorm with flax's epsilon. It never updates its
-    running statistics (training, with flax's momentum 0.99 = torch's
-    0.01, comes with the training port)."""
+    """BatchNorm as flax computes it, with its epsilon and momentum.
+
+    With batch statistics it normalises with flax's: the mean and the
+    biased variance E[x²] − E[x]², reduced in float32 and clipped at 0,
+    differentiated through both, (x − mean)·rsqrt(var + eps)·scale + bias.
+    In `train()` mode it folds the same pair into the running statistics,
+    ra = 0.99·ra + 0.01·batch; in `eval()` mode it writes nothing.
+    Without a gradient to take, the normalisation is one `F.batch_norm`
+    on those statistics.
+    """
+
+    momentum = 0.99
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -60,12 +107,25 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
 
     def forward(self, x: torch.Tensor, batch_stats: bool) -> torch.Tensor:
-        if batch_stats:
-            return F.batch_norm(x, None, None, self.weight, self.bias,
-                                training=True, eps=self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+        if not batch_stats:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = (0, 2, 3)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min(torch.square(xf).mean(dim=dims)
+                                  - torch.square(mean), 0.0)
+            if self.training:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, 1.0 - self.momentum)
+                    self.running_var.lerp_(var, 1.0 - self.momentum)
+            if torch.is_grad_enabled():
+                mul = torch.rsqrt(var + self.eps) * self.weight
+                y = ((x - mean[:, None, None]) * mul[:, None, None]
+                     + self.bias[:, None, None])
+                return y.to(x.dtype)
+        return F.batch_norm(x, mean, var, self.weight, self.bias,
+                            training=False, eps=self.eps)
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:

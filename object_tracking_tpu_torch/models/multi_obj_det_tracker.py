@@ -10,28 +10,48 @@ Port of `object_tracking_tpu/models/multi_obj_det_tracker.py`:
 
 The flat netout's channel is a·(5+C)+k in both frameworks, so the NCHW
 concat of the head conv's output with conv_feat is the JAX concat.
+
+`remat=True` runs the detector under `torch.utils.checkpoint` (non-
+reentrant), as the JAX model wraps it in `nn.remat`: its activations are
+recomputed in backward instead of kept. The recomputation writes no
+BatchNorm running statistic, so a training step updates them once.
 Images (B, T, H, W, 3), outputs and the (c, h) state keep the JAX layouts;
 the state is (B, GH, GW, F) each.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from object_tracking_tpu_torch.models.convlstm import FusedConvLSTM
 from object_tracking_tpu_torch.models.darknet19 import Darknet19, conv
+
+
+@contextlib.contextmanager
+def _in_eval_mode(module: nn.Module):
+    """`module` in eval() mode for the block: the recomputation under
+    `remat` normalises as the forward did and writes no running
+    statistic a second time."""
+    was = module.training
+    module.train(False)
+    try:
+        yield
+    finally:
+        module.train(was)
 
 
 class MultiObjDetTracker(nn.Module):
     """Joint detect+track model with a single ConvLSTM layer and the
     dense 1x1 track head.
 
-    `moe_experts`, `time_shards > 1`, `convlstm_layers > 1` and `remat`
-    are options of the JAX model that this port does not have yet; they
-    raise NotImplementedError naming their roadmap item.
+    `moe_experts`, `time_shards > 1` and `convlstm_layers > 1` are options
+    of the JAX model that this port does not have yet; they raise
+    NotImplementedError naming their roadmap item.
     """
 
     def __init__(self, num_classes: int = 12, num_anchors: int = 5,
@@ -48,8 +68,6 @@ class MultiObjDetTracker(nn.Module):
         if convlstm_layers > 1:
             later.append('convlstm_layers > 1 (StackedConvLSTM, queue 1, '
                          'item 5)')
-        if remat:
-            later.append('remat (training, queue 1, item 10)')
         if later:
             raise NotImplementedError(
                 'not ported yet, see ROADMAP.md: ' + ', '.join(later))
@@ -57,6 +75,7 @@ class MultiObjDetTracker(nn.Module):
         self.num_anchors = num_anchors
         self.convlstm_features = convlstm_features
         self.dtype = dtype
+        self.remat = remat
         self.detector = Darknet19(num_classes, num_anchors, dtype, width_div)
         out_ch = num_anchors * (5 + num_classes)
         self.tconv_lstm = FusedConvLSTM(out_ch + self.detector.feat_channels,
@@ -78,12 +97,19 @@ class MultiObjDetTracker(nn.Module):
          [, 'state': final (c, h), each (B, GH, GW, F) in the compute
          dtype, when return_state]}.
 
-        `train=True` normalises with batch statistics over all B·T frames
-        (bn_mode='batch'); no running statistic is ever written.
+        `train=True` normalises with batch statistics over all B·T frames;
+        in `train()` mode it also updates the running statistics, in
+        `eval()` mode (serving's bn_mode='batch') it writes none.
         """
         b, t, h, w, c = images.shape
-        head, feat = self.detector.features(
-            images.reshape(b * t, h, w, c), train)
+        flat = images.reshape(b * t, h, w, c)
+        if self.remat and torch.is_grad_enabled():
+            head, feat = checkpoint(
+                self.detector.features, flat, train, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _in_eval_mode(self.detector)))
+        else:
+            head, feat = self.detector.features(flat, train)
         _, out_ch, gh, gw = head.shape
         a, k = self.num_anchors, 5 + self.num_classes
         detect = head.float().permute(0, 2, 3, 1).reshape(b, t, gh, gw, a, k)

@@ -15,7 +15,8 @@ def test_constants_equal(name):
     assert getattr(tcfg, name) == getattr(jcfg, name)
 
 
-@pytest.mark.parametrize('cls', ['DetectorConfig', 'JointConfig'])
+@pytest.mark.parametrize('cls', ['DetectorConfig', 'LossConfig',
+                                 'JointConfig', 'TrainConfig'])
 def test_config_fields_have_the_jax_defaults(cls):
     port, ref = getattr(tcfg, cls)(), getattr(jcfg, cls)()
     for field in dataclasses.fields(port):
@@ -27,3 +28,13 @@ def test_detector_config_num_classes():
     assert tcfg.DetectorConfig().num_classes == \
         jcfg.DetectorConfig().num_classes == 80
     assert tcfg.DetectorConfig(labels=('a', 'b')).num_classes == 2
+
+
+def test_config_holds_the_ported_sections():
+    cfg = tcfg.Config()
+    assert [f.name for f in dataclasses.fields(cfg)] == [
+        'detector', 'loss', 'joint', 'train']
+    ref = jcfg.Config()
+    for name in ('detector', 'loss', 'joint', 'train'):
+        assert type(getattr(cfg, name)).__name__ == \
+            type(getattr(ref, name)).__name__

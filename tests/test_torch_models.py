@@ -59,6 +59,7 @@ def test_darknet19_matches_flax(rng, train):
         ref = jmodel.apply(variables, x, train=False)
     model = Darknet19(width_div=8, **SMALL)
     model.load_state_dict(from_flax(variables), strict=True)
+    model.eval()            # serving: batch statistics, nothing written
     before = {k: v.clone() for k, v in model.state_dict().items()}
     out = model(torch.from_numpy(x), train=train)
     for key in ('netout', 'conv_feat'):
@@ -66,6 +67,25 @@ def test_darknet19_matches_flax(rng, train):
         _close(out[key], ref[key], train)
     for k, v in model.state_dict().items():       # no running-stat writes
         assert torch.equal(v, before[k]), k
+
+
+def test_train_mode_folds_batch_statistics_like_flax(rng):
+    """In train() mode a batch-statistics forward writes flax's running
+    statistics (momentum 0.99, biased E[x²] − E[x]² variance); rtol 1e-4,
+    atol 1e-7 (a channel mean near 0 is a cancellation)."""
+    jmodel = JDarknet19(width_div=8, **SMALL)
+    x = rng.rand(2, 64, 64, 3).astype(np.float32)
+    variables = randomize_bn(jmodel.init(jax.random.PRNGKey(0), x), rng)
+    _, updates = jmodel.apply(variables, x, train=True,
+                              mutable=['batch_stats'])
+    want = from_flax({'params': variables['params'],
+                      'batch_stats': numpy_tree(updates['batch_stats'])})
+    model = Darknet19(width_div=8, **SMALL)
+    model.load_state_dict(from_flax(variables), strict=True)
+    model(torch.from_numpy(x), train=True)
+    for k, v in model.named_buffers():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
 
 
 def test_batch_stats_float32_error(rng):
@@ -140,8 +160,10 @@ def test_tracker_zero_state_and_later_options():
     model = MultiObjDetTracker(convlstm_features=8, width_div=8, **SMALL)
     c, h = model.zero_state(3, 2, 2)
     assert c.shape == (3, 2, 2, 8) and not c.any() and not h.any()
+    assert MultiObjDetTracker(remat=True, convlstm_features=8, width_div=8,
+                              **SMALL).remat       # ported with training
     for option in (dict(moe_experts=4), dict(time_shards=2),
-                   dict(convlstm_layers=2), dict(remat=True)):
+                   dict(convlstm_layers=2)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             MultiObjDetTracker(**option)
 
