@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, detector and training paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, detector, training and single-object
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -16,7 +16,7 @@ JSON line:
    path's shape (F=32 frames = B·T at B=8, T=4; K=128; C=12), at the
    full 13x13x5 lattice K=845, at the 19x19x5 lattice K=1805 and at
    each shape the paths give it ((32,128,12), (4,128,12), (8,16,80),
-   (1,128,80)); the two must agree exactly (max_abs_diff == 0) and
+   (1,128,80), (16,16,80)); the two must agree exactly (max_abs_diff == 0) and
    suppress something. At each path shape, its device time under
    torch.profiler, summed over its two passes (mask, walk) and split by
    pass, its call time by CUDA events, the wrapper's host cost per call
@@ -71,7 +71,35 @@ JSON line:
    three samples, all kept), the first step's time, peak memory, every
    step's loss (finite), and each step's device time by category under
    torch.profiler;
-9. the kernels line (each kernel's launches on the driven paths, error,
+9. tracker: the single-object pipeline at TrackerConfig() defaults over
+   the full-width YOLOv2 prior of the detector phase (seed 0, BatchNorm
+   statistics from the first batch). Two seeded videos of 16 frames at
+   416² (drifting filled rectangles, fed through `loader=`: no cv2), each
+   frame's object labelled with the class of the prior's best detection,
+   go through TrackerSequenceBatches (T=4, B=4) precomputed and
+   augmented: kernel 1 launches once per 16-frame precompute chunk and
+   once per augmented batch, and nms_impl='sort' gives identical 'det',
+   'target' and 'feats'. TinyTracker (LSTM-512, Global pool over
+   13x13x1024) with the bbox head and bce, the bbox head with huber and
+   the residual head, and the heatmap head (32² outputs): each takes one
+   float32 step on the card and on the CPU from the same weights and
+   batch (metrics, gradients, parameters within the CPU tests'
+   tolerances), a step under sync-debug mode 'error', 30 steps on one
+   batch at lr 1e-3 with a finite, falling loss, and steps/s (median of
+   three samples, all kept), device time, idle share and launches in
+   float32 and bfloat16. Then one epoch of `fit` with the tiny train and
+   eval steps over the precomputed batches;
+10. detector_train: make_detector_train_step on Darknet-19 at
+   DetectorConfig() (416², 80 classes). A reduced cut (width_div=8,
+   128², B=2) takes one float32 step on the card and on the CPU
+   (metrics, gradients, parameters and BatchNorm statistics). At full
+   width, flax-like init: a step under sync-debug mode 'error', 20 steps
+   on one B=8 batch with a finite, falling loss, and from those weights
+   at lr 0 steps/s, device time by category and peak memory at B=8 and
+   B=32 (DetectorConfig.batch_size) in float32 and bfloat16. Then
+   make_multihead_detector_train_step on a two-[yolo]-head cfg at 416²:
+   one step on the card and on the CPU;
+11. the kernels line (each kernel's launches on the driven paths, error,
    times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -93,21 +121,30 @@ import numpy as np
 import torch
 
 from object_tracking_tpu_torch.config import (
-    LABELS_MOT17, YOLOV2_ANCHORS, DetectorConfig)
+    LABELS_COCO, LABELS_MOT17, YOLOV2_ANCHORS, DetectorConfig)
+from object_tracking_tpu_torch.data import (
+    Annotation, ObjectAnnotation, TrackerSequenceBatches,
+    make_sequence_windows)
 from object_tracking_tpu_torch.evaluation import evaluate_detection
 from object_tracking_tpu_torch.inference import JointPredictor
 from object_tracking_tpu_torch.models import (
-    CfgDetector, MultiObjDetTracker, VGG16PriorSource, YOLOv2Detector)
+    CfgDetector, Darknet19, MultiObjDetTracker, TinyTracker,
+    VGG16PriorSource, YOLOv2Detector)
 from object_tracking_tpu_torch.models.darknet19 import BatchNorm, init_like_flax
+from object_tracking_tpu_torch.models.darknet_cfg import (
+    build_from_cfg, head_grids, head_specs)
 from object_tracking_tpu_torch.ops.boxes import iou_center
 from object_tracking_tpu_torch.ops.cuda import _build
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
 from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
+from object_tracking_tpu_torch.ops.targets import (
+    encode_targets_batch, encode_targets_multiscale)
 from object_tracking_tpu_torch.training import (
-    CheckpointManager, TrainState, make_joint_train_step_fused,
-    make_optimizer)
+    CheckpointManager, TrainState, fit, make_detector_train_step,
+    make_joint_train_step_fused, make_multihead_detector_train_step,
+    make_optimizer, make_tiny_eval_step, make_tiny_train_step)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -356,9 +393,10 @@ def nms_bound(out: torch.Tensor, k: int, c: int, frames: int) -> dict:
 
 # (frames, K, C) of the NMS kernel on the driven paths: joint predict_batch
 # (B·T = 32) and predict_window (T = 4), detector forward_batch (top-16 of
-# 8 images) and predict (top-128 of 1)
+# 8 images) and predict (top-128 of 1), the tracker batches' prior (top-16
+# of a 16-frame precompute chunk, or of an augmented batch's B·T = 4·4)
 NMS_PATH_SHAPES = ((32, 128, NUM_CLASSES), (4, 128, NUM_CLASSES), (8, 16, 80),
-                   (1, 128, 80))
+                   (1, 128, 80), (16, 16, 80))
 
 
 def check_nms(b, s, dead_frame: bool):
@@ -952,6 +990,55 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
                  / max(float(b.double().norm()), 1e-30))
 
 
+def step_parity(cpu: TrainState, card: TrainState, step, batch,
+                lr: float) -> dict:
+    """One step of `step` on the CPU state and on its card copy (same
+    weights) with the same batch: metrics, gradients, updated parameters
+    and BatchNorm statistics within the CPU parity tests' tolerances, and
+    every parameter with a gradient moved. Raises otherwise."""
+    init = {n: p.detach().clone() for n, p in cpu.model.named_parameters()}
+    _, m_cpu = step(cpu, batch)
+    _, m_card = step(card, batch)
+    torch.cuda.synchronize()
+    metrics = {k: [float(m_card[k]), float(m_cpu[k])] for k in m_cpu}
+    bad = [k for k, (a, b) in metrics.items()
+           if abs(a - b) > METRIC_ATOL + METRIC_RTOL * abs(b)]
+    card_p = dict(card.model.named_parameters())
+    cpu_p = {n: p for n, p in cpu.model.named_parameters()
+             if p.grad is not None}
+    grads = {n: rel_l2(card_p[n].grad.cpu(), p.grad)
+             for n, p in cpu_p.items()}
+    params = {n: rel_l2(card_p[n].detach().cpu(), p.detach())
+              for n, p in cpu_p.items()}
+    updates = {n: float((card_p[n].detach().cpu() - p.detach()).norm())
+               / (lr * p.numel() ** 0.5) for n, p in cpu_p.items()}
+    card_b = dict(card.model.named_buffers())
+    stats = {n: float(((card_b[n].cpu() - b).abs()
+                       / (STATS_ATOL + STATS_RTOL * b.abs())).max())
+             for n, b in cpu.model.named_buffers()}
+    moved = sum(not torch.equal(init[n], p.detach())
+                for n, p in cpu_p.items())
+    stepped = sum(bool(p.grad.any()) for p in cpu_p.values())
+    out = {'metrics_card_cpu': metrics, 'metrics_out_of_tol': bad,
+           'grad_rel_l2_max': max(grads.values()),
+           'grad_rel_l2_worst': max(grads, key=grads.get),
+           'param_rel_l2_max': max(params.values()),
+           'param_rel_l2_worst': max(params, key=params.get),
+           'update_rms_err_over_lr_max': max(updates.values()),
+           'stats_err_over_tol_max': max(stats.values(), default=0.0),
+           'params_moved': moved, 'params_with_gradient': stepped,
+           'params': len(init),
+           'tolerance': {'metrics_rtol': METRIC_RTOL,
+                         'metrics_atol': METRIC_ATOL,
+                         'grad_rel_l2': LEAF_TOL, 'param_rel_l2': LEAF_TOL,
+                         'stats_rtol': STATS_RTOL, 'stats_atol': STATS_ATOL}}
+    if (bad or out['grad_rel_l2_max'] > LEAF_TOL
+            or out['param_rel_l2_max'] > LEAF_TOL
+            or out['stats_err_over_tol_max'] > 1.0 or moved != stepped):
+        raise AssertionError(f'card and CPU steps disagree: {out}')
+    return out
+
+
 def card_matches_cpu(device) -> dict:
     """One fused float32 step without augmentation of a reduced model
     (width_div=8, 128², T=4, B=2) on the card and on the CPU, from the
@@ -962,46 +1049,11 @@ def card_matches_cpu(device) -> dict:
     cpu = train_state('cpu', width_div=8)
     card = TrainState.create(copy.deepcopy(cpu.model).to(device),
                              make_optimizer(TRAIN_LR))
-    step = train_step_fn(net, augment=False)
-    init = {n: p.detach().clone() for n, p in cpu.model.named_parameters()}
-    _, m_cpu = step(cpu, raw)
-    _, m_card = step(card, raw)
-    torch.cuda.synchronize()
-    metrics = {k: [float(m_card[k]), float(m_cpu[k])] for k in m_cpu}
-    bad = [k for k, (a, b) in metrics.items()
-           if abs(a - b) > METRIC_ATOL + METRIC_RTOL * abs(b)]
-    card_p = dict(card.model.named_parameters())
-    grads = {n: rel_l2(card_p[n].grad.cpu(), p.grad)
-             for n, p in cpu.model.named_parameters()}
-    params = {n: rel_l2(card_p[n].detach().cpu(), p.detach())
-              for n, p in cpu.model.named_parameters()}
-    updates = {n: float((card_p[n].detach().cpu() - p.detach()).norm())
-               / (TRAIN_LR * p.numel() ** 0.5)
-               for n, p in cpu.model.named_parameters()}
-    card_b = dict(card.model.named_buffers())
-    stats = {n: float(((card_b[n].cpu() - b).abs()
-                       / (STATS_ATOL + STATS_RTOL * b.abs())).max())
-             for n, b in cpu.model.named_buffers()}
-    moved = sum(not torch.equal(init[n], p.detach())
-                for n, p in cpu.model.named_parameters())
-    out = {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8},
-           'metrics_card_cpu': metrics, 'metrics_out_of_tol': bad,
-           'grad_rel_l2_max': max(grads.values()),
-           'grad_rel_l2_worst': max(grads, key=grads.get),
-           'param_rel_l2_max': max(params.values()),
-           'param_rel_l2_worst': max(params, key=params.get),
-           'update_rms_err_over_lr_max': max(updates.values()),
-           'stats_err_over_tol_max': max(stats.values()),
-           'params_moved': moved, 'params': len(params),
-           'tolerance': {'metrics_rtol': METRIC_RTOL,
-                         'metrics_atol': METRIC_ATOL,
-                         'grad_rel_l2': LEAF_TOL, 'param_rel_l2': LEAF_TOL,
-                         'stats_rtol': STATS_RTOL, 'stats_atol': STATS_ATOL}}
-    if (bad or out['grad_rel_l2_max'] > LEAF_TOL
-            or out['param_rel_l2_max'] > LEAF_TOL
-            or out['stats_err_over_tol_max'] > 1.0 or moved != len(params)):
-        raise AssertionError(f'card and CPU steps disagree: {out}')
-    return out
+    out = step_parity(cpu, card, train_step_fn(net, augment=False), raw,
+                      TRAIN_LR)
+    if out['params_moved'] != out['params']:
+        raise AssertionError(f'a parameter did not move: {out}')
+    return {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8}, **out}
 
 
 def checkpoint_round_trip(device) -> dict:
@@ -1044,7 +1096,8 @@ def timed(fn):
     return out, (time.perf_counter() - start) * 1e3
 
 
-def train_readings(state, step, batches, key: str, readings: dict) -> None:
+def train_readings(state, step, batches, key: str, readings: dict,
+                   categories=TRAIN_CATEGORIES) -> None:
     """One configuration: the first step's time (host clock, synchronised),
     steps/s (median of three samples of 5 steps, all kept), the step's
     device profile, the peak memory, and the loss of every step taken,
@@ -1061,8 +1114,7 @@ def train_readings(state, step, batches, key: str, readings: dict) -> None:
     out = {'first_step_ms': first_ms}
     median = put_rate(out, 'steps_per_s', rate(call, 1, 5))
     out['profile'] = breakdown(device_times(call, 2, state.model),
-                               1e3 / median,
-                               TRAIN_CATEGORIES)
+                               1e3 / median, categories)
     out['max_memory_allocated_bytes'] = torch.cuda.max_memory_allocated()
     out['losses'] = torch.stack(losses).cpu().tolist()
     readings[key] = out
@@ -1173,6 +1225,348 @@ def serve_trained(model, device) -> dict:
             **check_results(frames, obj_threshold)}
 
 
+# --------------------------------------------------- single-object pipeline
+TRACK_B = 4            # TrainConfig.batch_size
+TRACK_T = 4            # TrackerConfig.sequence_length
+TRACK_VIDEOS, TRACK_FRAMES = 2, 16
+TINY_LR = 1e-3         # TrainConfig.learning_rate
+PRECOMPUTE_CHUNK = 16  # TrackerSequenceBatches.precompute's chunk
+# kernel-name fragments → category of a tiny step's device time
+TINY_CATEGORIES = (
+    ('matmul', ('gemm', 'gemv', 'sm90_', 'cutlass', 'xmma', 'splitk')),
+    ('optimizer', ('multi_tensor_apply', 'adam')),
+    ('memcpy', ('memcpy', 'memset')),
+)
+
+
+def tracker_folder(seed: int):
+    """Seeded videos as an in-memory folder: {path: (NET, NET, 3) float32
+    frame}, and one annotation per frame whose object is the first of
+    three filled rectangles drifting over dark noise (label set later)."""
+    rng = np.random.RandomState(seed)
+    frames, anns = {}, []
+    for v in range(TRACK_VIDEOS):
+        rects = [(rng.randint(NET // 10, NET // 3, 2),
+                  rng.randint(0, NET // 2, 2), rng.randint(-8, 9, 2),
+                  rng.randint(80, 256, 3)) for _ in range(3)]
+        for f in range(TRACK_FRAMES):
+            img = rng.randint(0, 60, (NET, NET, 3)).astype(np.uint8)
+            boxes = []
+            for (w, h), (x, y), (vx, vy), colour in rects:
+                x1 = int(np.clip(x + vx * f, 0, NET - w))
+                y1 = int(np.clip(y + vy * f, 0, NET - h))
+                img[y1:y1 + h, x1:x1 + w] = colour
+                boxes.append((x1, y1, x1 + w, y1 + h))
+            path = f'frames/v{v}/{f:04d}.jpg'
+            frames[path] = img.astype(np.float32) / 255.0
+            anns.append(Annotation(path, f'v{v}', NET, NET, [
+                ObjectAnnotation('', *map(float, boxes[0]))]))
+    return frames, anns
+
+
+def same_batches(a: list, b: list) -> float:
+    """Largest |a - b| over every array of two lists of batches."""
+    return max(float(np.abs(x[k] - y[k]).max())
+               for x, y in zip(a, b) for k in x)
+
+
+def tracker_batches(det, windows, frames) -> tuple:
+    """The YOLOv2-prior batches, precomputed and augmented: kernel 1
+    launches once per precompute chunk and once per augmented batch, and
+    the 'sort' NMS gives identical batches (cuDNN deterministic for both).
+    Returns the batches, their launch counts and the record."""
+    kw = dict(net_h=NET, net_w=NET, batch_size=TRACK_B, seed=0,
+              loader=frames.__getitem__)
+    out, launches, record = {}, {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode, augment in (('precompute', False), ('augment', True)):
+            det.nms_impl = 'auto'
+            gen = TrackerSequenceBatches(windows, LABELS_COCO, det,
+                                         augment=augment, **kw)
+            cuda_nms.nms_scores.launches = 0
+            batches = list(gen())
+            torch.cuda.synchronize()
+            launches[mode] = cuda_nms.nms_scores.launches
+            want = (len(gen) if augment else
+                    -(-len(frames) // PRECOMPUTE_CHUNK))
+            if launches[mode] != want:
+                raise AssertionError(f'tracker {mode}: nms_scores launched '
+                                     f'{launches[mode]} times, not {want}')
+            det.nms_impl = 'sort'
+            sort = list(TrackerSequenceBatches(windows, LABELS_COCO, det,
+                                               augment=augment, **kw)())
+            diff = same_batches(batches, sort)
+            if diff != 0:
+                raise AssertionError(f"tracker {mode}: nms_impl='sort' "
+                                     f'batches differ by {diff}')
+            dets = np.concatenate([b['det'] for b in batches])
+            record[mode] = {
+                'batches': len(batches), 'nms_launches': launches[mode],
+                'kernel_equals_sort_max_abs_diff': diff,
+                'frames_with_detection': int((np.abs(dets).sum(-1)
+                                              > 0).sum()),
+                'frames': int(dets.shape[0] * dets.shape[1])}
+            out[mode] = batches
+    finally:
+        det.nms_impl = 'auto'
+        torch.backends.cudnn.deterministic = False
+    feats = (TRACK_B, TRACK_T) + det.get_layer_dims('conv_feat')
+    for b in out['precompute'] + out['augment']:
+        if not all(np.isfinite(v).all() for v in b.values()) or \
+                b['feats'].shape != feats:
+            raise AssertionError('tracker batch: bad shape or value')
+    return out, launches, record
+
+
+def learns(state, step, batch, steps: int) -> dict:
+    """`steps` steps on one fixed batch, the second under sync-debug mode
+    'error' (a host sync in the step raises): a finite, falling loss."""
+    losses = []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            losses.append(step(state, batch)[1]['loss'])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    trajectory = torch.stack(losses).cpu().tolist()
+    first5, last5 = np.mean(trajectory[:5]), np.mean(trajectory[-5:])
+    if not (np.isfinite(trajectory).all() and last5 < first5):
+        raise AssertionError(f'training did not learn: {trajectory}')
+    return {'sync_debug_step': 'no sync raised', 'loss_trajectory':
+            trajectory, 'loss_first5_mean': first5, 'loss_last5_mean': last5}
+
+
+def readings_by_dtype(make_state, step, batches, categories, keys) -> dict:
+    """For each (key, batches) and dtype, one configuration alone on the
+    card: steps/s (median of three samples, all kept), device time by
+    category, idle share and launches, peak memory, every loss."""
+    readings = {}
+    for name, dtype in (('float32', torch.float32),
+                        ('bfloat16', torch.bfloat16)):
+        for key, group in zip(keys, batches):
+            state = make_state(dtype)
+            train_readings(state, step, group, f'{key}_{name}', readings,
+                           categories)
+            del state
+            gc.collect()
+    return readings
+
+
+def tracker_phase(device, smi: str) -> dict:
+    """The single-object pipeline at TrackerConfig() defaults over the
+    full-width YOLOv2 prior: batches, TinyTracker steps, one fit epoch."""
+    cfg = DetectorConfig()
+    det = YOLOv2Detector(cfg, seed=0, device=device)
+    frames, anns = tracker_folder(7)
+    images = np.stack(list(frames.values()))
+    calibrate_bn(det.model, torch.from_numpy(images[:8]).to(device))
+    cfg.obj_threshold = live_threshold(det.forward(images[:8])['netout'],
+                                       det.anchors)
+    # each frame's object takes the class of the prior's best detection
+    _, _, labels, scores, valid = det.forward_batch(images)
+    best = torch.where(valid, scores, torch.zeros_like(scores)).argmax(-1)
+    names = [LABELS_COCO[int(labels[i, k])] if bool(valid[i, k])
+             else 'person' for i, k in enumerate(best.tolist())]
+    for ann, name in zip(anns, names):
+        ann.objects[0].label = name
+    windows = make_sequence_windows(anns, TRACK_T)
+    batches, launches, record = tracker_batches(det, windows, frames)
+    heat = list(TrackerSequenceBatches(
+        windows, LABELS_COCO, det, net_h=NET, net_w=NET,
+        batch_size=TRACK_B, target_mode='heatmap', heatmap_size=32,
+        augment=False, seed=0, loader=frames.__getitem__)())
+
+    feat_shape = det.get_layer_dims('conv_feat')
+    heads = {}
+    for name, heatmap, loss, residual in (
+            ('bbox_bce', False, 'bce', False),
+            ('bbox_huber_residual', False, 'huber', True),
+            ('heatmap_bce', True, 'bce', False)):
+        group = heat if heatmap else batches['precompute']
+
+        def make_state(dtype=torch.float32, on=device, heatmap=heatmap,
+                       residual=residual):
+            model = init_like_flax(TinyTracker(
+                feat_shape, lstm_units=512,
+                out_dim=1024 if heatmap else 4, pool='Global', dtype=dtype,
+                residual_det=residual), 0)
+            return TrainState.create(model.to(on), make_optimizer(TINY_LR))
+        step = make_tiny_train_step(heatmap, loss)
+        cpu = make_state(on='cpu')
+        card = TrainState.create(copy.deepcopy(cpu.model).to(device),
+                                 make_optimizer(TINY_LR))
+        out = {'card_vs_cpu': step_parity(cpu, card, step, group[0],
+                                          TINY_LR)}
+        out.update(learns(make_state(), step, group[0], 30))
+        out['readings'] = readings_by_dtype(make_state, step, [group],
+                                            TINY_CATEGORIES, ['b4'])
+        heads[name] = out
+
+    # one epoch of the flow's loop over the precomputed prior batches
+    gen = TrackerSequenceBatches(windows, LABELS_COCO, det, net_h=NET,
+                                 net_w=NET, batch_size=TRACK_B,
+                                 augment=False, seed=0,
+                                 loader=frames.__getitem__)
+    state = TrainState.create(init_like_flax(TinyTracker(feat_shape), 0)
+                              .to(device), make_optimizer(TINY_LR))
+    start = time.perf_counter()
+    seen = []
+    fit(state, make_tiny_train_step(), gen, eval_step=make_tiny_eval_step(),
+        val_batches=gen, epochs=1,
+        on_epoch_end=lambda e, s, t, v: seen.append((t, v)))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - start
+    (train_m, val_m), = seen
+    if state.step != len(gen) or not np.isfinite(
+            [train_m['loss'], val_m['loss']]).all():
+        raise AssertionError(f'fit epoch: step {state.step}, {train_m}, '
+                             f'{val_m}')
+    return {'phase': 'tracker', 'net': NET, 'T': TRACK_T, 'B': TRACK_B,
+            'classes': cfg.num_classes, 'lstm_units': 512, 'pool': 'Global',
+            'feature': list(feat_shape), 'lr': TINY_LR,
+            'obj_threshold': cfg.obj_threshold, 'windows': len(windows),
+            'frames': len(frames), 'batches': record, 'heads': heads,
+            'fit_epoch': {'steps': state.step, 'seconds': epoch_s,
+                          'train': train_m, 'val': val_m},
+            'card': smi}, launches
+
+
+# ------------------------------------------------ standalone detector path
+DET_LR = 1e-4          # TrainConfig.joint_learning_rate, the flow's rate
+# the two-[yolo]-head topology of tests/test_darknet_cfg.py::V3_CFG at 416²
+V3_CFG_416 = """
+[net]
+height=416
+width=416
+channels=3
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+activation=leaky
+[shortcut]
+from=-2
+activation=linear
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+activation=leaky
+[convolutional]
+filters=21
+size=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=10,13, 16,30, 33,23
+classes=2
+[route]
+layers=-3
+[upsample]
+stride=2
+[convolutional]
+filters=21
+size=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=10,13, 16,30, 33,23
+classes=2
+"""
+
+
+def detection_batch(seed: int, batch: int, net: int = 0,
+                    classes: int = 80) -> dict:
+    """A seeded DetectionBatches-shaped batch: the first frame of each of
+    train_batch's windows, its boxes encoded for Darknet-19's grid."""
+    net = net or NET
+    raw = train_batch(seed, batch, net=net)
+    y, b = encode_targets_batch(
+        torch.from_numpy(raw['boxes'][:, 0]), torch.from_numpy(
+            raw['cls'][:, 0]), torch.from_numpy(raw['valid'][:, 0]),
+        YOLOV2_ANCHORS, image_h=net, image_w=net, grid_h=net // 32,
+        grid_w=net // 32, num_classes=classes, true_box_buffer=MAX_BOXES)
+    return {'images': raw['images_u8'][:, 0].astype(np.float32) / 255.0,
+            'y_true': y.numpy(), 'true_boxes': b.numpy()}
+
+
+def multihead_parity(device) -> dict:
+    """make_multihead_detector_train_step on the two-[yolo]-head cfg at
+    416²: one step card against CPU; each head's grid from one forward."""
+    cpu_net = init_like_flax(build_from_cfg(V3_CFG_416)[0], 0)
+    grids = head_grids(cpu_net, NET, 'cpu')
+    heads = tuple((tuple(float(v) for v in np.asarray(
+        s['anchors'], np.float32).reshape(-1)), gh, gw, s['num_classes'])
+        for s, (gh, gw) in zip(head_specs(cpu_net.plan), grids))
+    raw = train_batch(31, 2)
+    cls = raw['cls'][:, 0] % 2
+    ys, bs = encode_targets_multiscale(
+        torch.from_numpy(raw['boxes'][:, 0]), torch.from_numpy(cls),
+        torch.from_numpy(raw['valid'][:, 0]), heads, image_h=NET,
+        image_w=NET, true_box_buffer=MAX_BOXES)
+    batch = {'images': raw['images_u8'][:, 0].astype(np.float32) / 255.0,
+             'y_true': tuple(y.numpy() for y in ys),
+             'true_boxes': tuple(b.numpy() for b in bs)}
+    step = make_multihead_detector_train_step(heads, (NET, NET))
+    cpu = TrainState.create(cpu_net, make_optimizer(DET_LR))
+    card = TrainState.create(copy.deepcopy(cpu_net).to(device),
+                             make_optimizer(DET_LR))
+    return {'grids': grids, **step_parity(cpu, card, step, batch, DET_LR)}
+
+
+def detector_train_phase(device, smi: str) -> dict:
+    """make_detector_train_step on YOLOv2 at DetectorConfig(): card against
+    CPU at a reduced cut, then at full width a sync-free step, 20 steps on
+    a fixed batch, and readings at B=8 and B=32; the multi-head step."""
+    cfg = DetectorConfig()
+    step = make_detector_train_step(cfg.anchors)
+    net = 128
+    cpu = TrainState.create(init_like_flax(Darknet19(
+        cfg.num_classes, cfg.num_anchors, width_div=8), 0),
+        make_optimizer(DET_LR))
+    card = TrainState.create(copy.deepcopy(cpu.model).to(device),
+                             make_optimizer(DET_LR))
+    parity = {'shape': {'net': net, 'B': 2, 'width_div': 8},
+              **step_parity(cpu, card, step,
+                            detection_batch(41, 2, net=net), DET_LR)}
+
+    det = YOLOv2Detector(cfg, seed=0, device=device)
+    init_like_flax(det.model, 0)            # the flow's start without weights
+    state = TrainState.create(det.model, make_optimizer(DET_LR))
+    learned = learns(state, step, detection_batch(42, 8), 20)
+    weights = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state, det
+    gc.collect()
+
+    def make_state(dtype):
+        model = Darknet19(cfg.num_classes, cfg.num_anchors, dtype)
+        model.load_state_dict(weights)
+        return TrainState.create(model.to(device),
+                                 make_optimizer(DET_LR)).with_learning_rate(
+                                     0.0)
+    # at lr 0 every kernel of a step runs and the weights stay those the 20
+    # steps left (see train_phase); B=32 is DetectorConfig.batch_size
+    readings = readings_by_dtype(
+        make_state, step,
+        [[detection_batch(300 + i, b) for i in range(2)] for b in (8, 32)],
+        TRAIN_CATEGORIES, ['b8', 'b32'])
+    return {'phase': 'detector_train', 'net': NET,
+            'classes': cfg.num_classes, 'anchors': cfg.num_anchors,
+            'width_div': cfg.width_div, 'lr': DET_LR, 'readings_lr': 0.0,
+            'card_vs_cpu': parity, **learned, 'readings': readings,
+            'multihead_card_vs_cpu': multihead_parity(device), 'card': smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -1209,11 +1603,16 @@ def main() -> int:
     emit({'phase': 'decode_nms', **dn, 'card': smi})
     train = train_phase(device, smi)
     emit(train)
+    tracker, tracker_launches = tracker_phase(device, smi)
+    emit(tracker)
+    emit(detector_train_phase(device, smi))
 
     nms_launches = {'joint_path': path['nms_launches'],
                     'detector_path': detector['nms_launches'],
                     'golden_detectors': golden['nms_launches'],
-                    'train_to_serve': train['serve']['nms_launches']}
+                    'train_to_serve': train['serve']['nms_launches'],
+                    'tracker_precompute': tracker_launches['precompute'],
+                    'tracker_augment': tracker_launches['augment']}
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']

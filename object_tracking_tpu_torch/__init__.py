@@ -7,14 +7,15 @@ imports nothing of it and nothing of JAX. Module layout mirrors it:
 - `ops/`: box math, decode, greedy NMS (with the hand-written CUDA kernels
   under `ops/cuda/`), track-identity assignment, YOLO target encoding;
 - `models/`: Darknet-19, the ConvLSTM, the joint detect+track model, the
-  detector surfaces and the losses;
-- `data/`: annotations, windows, augmentation, batch generators, the
-  synthetic dataset;
+  detector surfaces, the single-object TinyTracker, the fake prior source
+  and the losses;
+- `data/`: annotations, windows, augmentation, batch generators (detector,
+  joint and single-object), the synthetic dataset;
 - `training/`: train state and Adam, train/eval steps, the fit loop,
   callbacks, checkpoints, metric logging;
 - `convert.py`: flax variables and train states (as numpy) → torch;
 - `inference.py`: `JointPredictor`, the serving entry point;
-- `trainer.py`: the joint training flow.
+- `trainer.py`: the single-object, joint and detector training flows.
 
 Entry points run on CUDA unless the caller passes `device='cpu'`.
 """

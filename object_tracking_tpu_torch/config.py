@@ -2,11 +2,12 @@
 
 The port keeps its own copy of what it reads from the JAX package's
 `object_tracking_tpu/config.py` (anchors, the track gate, the COCO and
-MOT17 label sets, and the `DetectorConfig`, `LossConfig`, `JointConfig` and
-`TrainConfig` fields the port uses), so that importing it never imports the
-JAX package. `Config` holds the four; the tracker and mesh sections wait
-for the single-object flow and the parallel paths (ROADMAP.md queue 1,
-items 13 and 16).
+MOT17 label sets, and the `DetectorConfig`, `LossConfig`, `TrackerConfig`,
+`JointConfig` and `TrainConfig` fields the port uses), so that importing it
+never imports the
+JAX package. `Config` holds the five (`TrackerConfig` is the
+single-object pipeline's); the mesh section waits for the parallel paths
+(ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -60,6 +61,20 @@ class DetectorConfig:
     nms_threshold: float = 0.45
     # darknet yolov2.weights to load at construction
     weights_path: Optional[str] = None
+    # Frozen prior source of the single-object pipeline: 'yolo' (YOLOv2),
+    # 'vgg16' (VGG16 with its dense detection head) or 'fake'.
+    backend: str = 'yolo'
+    # VGG16 backend: an .npz of named arrays, the fc6/fc7 width and the
+    # channel divisor (4096 and 1 = the standard VGG16).
+    vgg_weights_path: Optional[str] = None
+    vgg_fc_features: int = 4096
+    vgg_width_div: int = 1
+    # Optional darknet .cfg of the detector graph (else Darknet-19).
+    cfg_path: Optional[str] = None
+    # Feature layer the single-object trackers consume.
+    feature_layer: str = 'conv_feat'
+    # Detector-training batch size.
+    batch_size: int = 32
     # Backbone channel-width divisor (floor 4 channels); 1 = full width.
     width_div: int = 1
 
@@ -78,6 +93,24 @@ class LossConfig:
     warm_up_batches: int = 0
     true_box_buffer: int = 50
     best_iou_threshold: float = 0.6
+
+
+@dataclass
+class TrackerConfig:
+    """Single-object tracker fields."""
+    name: str = 'TinyTracker'     # or 'TinyHeatmapTracker'
+    lstm_units: int = 512
+    sequence_length: int = 4
+    heatmap_size: int = 32
+    pool: str = 'Global'          # 'Global' or 'Max'
+    # 'bce' (binary cross-entropy on the sigmoid outputs) or 'huber'.
+    loss: str = 'bce'
+    # The bbox head predicts a presence-gated correction of its detection
+    # input (models/tiny_tracker.py); needs loss 'huber'.
+    residual: bool = False
+    # Per-frame probability of zeroing the detection input (a missed
+    # detection) in the batches.
+    det_dropout: float = 0.0
 
 
 @dataclass
@@ -149,5 +182,6 @@ class TrainConfig:
 class Config:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    tracker: TrackerConfig = field(default_factory=TrackerConfig)
     joint: JointConfig = field(default_factory=JointConfig)
     train: TrainConfig = field(default_factory=TrainConfig)

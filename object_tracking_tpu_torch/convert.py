@@ -3,20 +3,27 @@
 `from_flax` takes `{'params': ..., 'batch_stats': ...}` as nested dicts of
 numpy arrays (convert JAX arrays with `np.asarray` first: this module never
 imports JAX) and returns the state_dict of the matching port module:
-`MultiObjDetTracker`, `Darknet19`, `FusedConvLSTM`, `DarknetCfgNet` or
-`VGG16`. Leaves are copied, never shared with the numpy arrays.
+`MultiObjDetTracker`, `Darknet19`, `FusedConvLSTM`, `DarknetCfgNet`,
+`VGG16` or `TinyTracker`. Leaves are copied, never shared with the numpy
+arrays.
 
 - conv `kernel` (kh, kw, in, out) HWIO → `weight` (out, in, kh, kw) OIHW;
 - `tconv_lstm/recurrent_kernel` (kh, kw, F, 4F) → (4F, F, kh, kw), the
   same transpose, keeping the gate order (i, f, g, o) along the output
   channel;
+- Dense `kernel` (in, out) → `weight` (out, in);
 - `bias` → `bias`;
 - BatchNorm `scale` / `bias` and batch_stats `mean` / `var` → `weight` /
-  `bias` / `running_mean` / `running_var`.
+  `bias` / `running_mean` / `running_var`;
+- an `OptimizedLSTMCell_<n>` (gates `ii/if/ig/io`, kernel (in, H) each,
+  and `hi/hf/hg/ho`, kernel (H, H) and bias each) → the sibling module
+  `lstm` of `models/tiny_tracker.py::LSTM`: `weight_ih` (4H, in) and
+  `weight_hh` (4H, H), the gate kernels stacked (i, f, g, o) and
+  transposed, and `bias` (4H) from the four recurrent biases.
 
-A leaf that no rule maps, or a BatchNorm missing one of its four
-entries, raises; `load_state_dict(strict=True)` then catches any key the
-module has and the tree lacks.
+A leaf that no rule maps, an LSTM cell missing a gate, or a BatchNorm
+missing one of its four entries, raises; `load_state_dict(strict=True)`
+then catches any key the module has and the tree lacks.
 
 `to_flax` is its inverse: a state_dict → the same nested numpy tree, which
 the darknet exporters (`ops/weights.py`, `models/darknet_cfg.py`) write.
@@ -30,7 +37,7 @@ the same trajectory.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,35 +48,70 @@ _STAT_LEAVES = {'mean': 'running_mean', 'var': 'running_var'}
 _NORM_KEYS = ('weight', 'bias', 'running_mean', 'running_var')
 
 
-def _leaves(tree, prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            yield from _leaves(value, prefix + (key,))
-        else:
-            yield prefix + (key,), np.asarray(value)
+_INPUT_GATES = ('ii', 'if', 'ig', 'io')
+_HIDDEN_GATES = ('hi', 'hf', 'hg', 'ho')
 
 
 def _tensor(path: Tuple[str, ...], leaf: str, value: np.ndarray):
-    if leaf in ('kernel', 'recurrent_kernel'):
+    if leaf == 'kernel' and value.ndim == 2:
+        value = value.T                                 # Dense (in, out)
+    elif leaf in ('kernel', 'recurrent_kernel'):
         if value.ndim != 4:
-            raise ValueError(f'{"/".join(path)}: expected a 4-d conv kernel, '
-                             f'got shape {value.shape}')
+            raise ValueError(f'{"/".join(path)}: expected a 4-d conv or 2-d '
+                             f'dense kernel, got shape {value.shape}')
         value = value.transpose(3, 2, 0, 1)            # HWIO → OIHW
     return torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
 
 
-def _collection(tree, collection: str, rules, state, norms) -> None:
+def _lstm_cell(path: Tuple[str, ...], cell: Dict, state) -> None:
+    """One flax OptimizedLSTMCell (or a tree shaped like its params: the
+    gradients, Adam's moments) → `lstm.weight_ih` / `weight_hh` / `bias`
+    of the sibling module `lstm`."""
+    where = '/'.join(path)
+    unknown = set(cell) - set(_INPUT_GATES + _HIDDEN_GATES)
+    missing = set(_INPUT_GATES + _HIDDEN_GATES) - set(cell)
+    if unknown or missing:
+        raise KeyError(f'{where}: unused gates {sorted(unknown)}, missing '
+                       f'{sorted(missing)}')
+    for gate in _INPUT_GATES + _HIDDEN_GATES:
+        want = {'kernel'} if gate in _INPUT_GATES else {'kernel', 'bias'}
+        if set(cell[gate]) != want:
+            raise KeyError(f'{where}/{gate}: keys {sorted(cell[gate])}, '
+                           f'expected {sorted(want)}')
+
+    def stack(gates, leaf, axis):
+        return np.concatenate([np.asarray(cell[g][leaf], np.float32)
+                               for g in gates], axis=axis)
+    prefix = '.'.join(path[:-1] + ('lstm',))
+    for name, value in (('weight_ih', stack(_INPUT_GATES, 'kernel', 1).T),
+                        ('weight_hh', stack(_HIDDEN_GATES, 'kernel', 1).T),
+                        ('bias', stack(_HIDDEN_GATES, 'bias', 0))):
+        state[f'{prefix}.{name}'] = torch.from_numpy(
+            np.ascontiguousarray(value))
+
+
+def _collection(tree, collection: str, rules, state, norms,
+                path: Tuple[str, ...] = ()) -> None:
     """Map one flax collection's leaves into `state` (name → tensor),
     adding each BatchNorm's module name to `norms`."""
-    for path, value in _leaves(tree):
-        *module, leaf = path
-        if leaf not in rules:
-            raise KeyError(f'unused key {collection}/{"/".join(path)}')
-        if leaf in ('scale', 'mean', 'var'):
-            norms.add('.'.join(module))
-        name = '.'.join(module + [rules[leaf]])
-        state[name] = _tensor(path, leaf, value)
+    for key, node in tree.items():
+        if key.startswith('OptimizedLSTMCell') and isinstance(node, dict):
+            _lstm_cell(path + (key,), node, state)
+        elif isinstance(node, dict):
+            _collection(node, collection, rules, state, norms, path + (key,))
+        else:
+            _leaf(path + (key,), np.asarray(node), collection, rules, state,
+                  norms)
+
+
+def _leaf(path: Tuple[str, ...], value: np.ndarray, collection: str, rules,
+          state, norms) -> None:
+    *module, leaf = path
+    if leaf not in rules:
+        raise KeyError(f'unused key {collection}/{"/".join(path)}')
+    if leaf in ('scale', 'mean', 'var'):
+        norms.add('.'.join(module))
+    state['.'.join(module + [rules[leaf]])] = _tensor(path, leaf, value)
 
 
 def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -137,8 +179,9 @@ def load_flax_train_state(state, *, step, params: Dict, batch_stats: Dict,
     trees shaped like `params`; the injected `learning_rate`), into the
     port's `state` (a `training.state.TrainState`), in place; returns it.
 
-    Adam's first and second moments take the same HWIO → OIHW transposes
-    as their parameters; each parameter's Adam step is `count`."""
+    Adam's first and second moments take the same transposes (and LSTM
+    gate stacking) as their parameters; each parameter's Adam step is
+    `count`."""
     state.model.load_state_dict(
         from_flax({'params': params, 'batch_stats': batch_stats}),
         strict=True)

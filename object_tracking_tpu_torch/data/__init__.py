@@ -1,5 +1,6 @@
-"""Data layer of the joint pipeline: annotation parsing, sequence windows,
-augmentation, batch generators and the synthetic dataset.
+"""Data layer: annotation parsing, sequence windows, augmentation, the
+batch generators of the detector, joint and single-object pipelines, and
+the synthetic dataset.
 
 Host side stays numpy (+ cv2 for image files, imported at use); the
 augmentation and target encoding that feed the loss are tensor ops that
@@ -14,4 +15,6 @@ from object_tracking_tpu_torch.data.augment import (  # noqa: F401
     AugmentConfig, augment_frame, augment_sequence, apply_params,
     draw_params,
 )
-from object_tracking_tpu_torch.data.generators import SequenceBatches  # noqa: F401
+from object_tracking_tpu_torch.data.generators import (  # noqa: F401
+    DetectionBatches, SequenceBatches, TrackerSequenceBatches,
+)

@@ -1,28 +1,32 @@
-"""Batch generators of the joint pipeline: host IO, per-epoch shuffle,
-fixed shapes.
+"""Batch generators: host IO, per-epoch shuffle, fixed shapes.
 
-Port of `SequenceBatches` (with `_pad_boxes` and `_GeneratorBase`) of
-`object_tracking_tpu/data/generators.py`: (B, T) video windows for the
-joint detect+track pipeline. A generator is callable → a fresh shuffled
-iterator of plain numpy batches (the fit loop's contract).
+Port of `object_tracking_tpu/data/generators.py` (with `_pad_boxes` and
+`_GeneratorBase`). A generator is callable → a fresh shuffled iterator of
+plain numpy batches (the fit loop's contract).
 
-- `raw_mode=True` (the fused train steps): {'images_u8' (B,T,H,W,3)
+- `DetectionBatches`: detector-training batches {'images' (B,H,W,3),
+  'y_true' (B,GH,GW,A,5+C), 'true_boxes' (B,1,1,1,M,4)}, or with `heads`
+  (multi-scale [yolo] heads) a tuple of each, one per head.
+- `SequenceBatches`: (B, T) video windows of the joint pipeline.
+  `raw_mode=True` (the fused train steps) gives {'images_u8' (B,T,H,W,3)
   uint8, 'boxes' (B,T,M,4) network pixels, 'cls', 'valid', 'aug_seeds'
-  (B,) uint32}. Host work only; augmentation and target encoding run in
-  the step on the device.
-- Legacy mode: {'images' (B,T,H,W,3) float32 in [0, 1], 'y_true', 'true_
-  boxes'}, augmented and encoded here on the host CPU.
+  (B,) uint32}, host work only; the legacy mode {'images' (B,T,H,W,3)
+  float32 in [0, 1], 'y_true', 'true_boxes'}, augmented and encoded here
+  on the host CPU.
+- `TrackerSequenceBatches`: the single-object pipeline {'feats'
+  (B,T,fh,fw,fc), 'det' (B,T,D), 'target' (B,T,D)} over a frozen prior
+  source (see its docstring).
 
-The numpy `RandomState(seed)` calls are the JAX generator's, in its order
-(one permutation per epoch, then `randint` for a raw batch's 'aug_seeds'),
-so both packages give the same windows, boxes and seeds. Legacy
-augmentation draws its per-window seeds from a separate torch generator,
-so it leaves that stream alone (JAX draws them from its own PRNG key).
+The numpy `RandomState(seed)` calls are the JAX generators', in their
+order (one permutation per epoch; then `randint` for a raw batch's
+'aug_seeds', or `rand` for the tracker's `det_dropout`), so both packages
+give the same batches for the same seed. Host augmentation draws its
+per-window or per-frame seeds from a separate torch generator, so it
+leaves that stream alone (JAX draws them from its own PRNG key).
 
-Images are decoded with `cv2`, imported at use (the JAX package prefers
-its native C++ decoder and falls back to cv2). `DetectionBatches` and
-`TrackerSequenceBatches` come with their flows (ROADMAP.md queue 1,
-items 11 and 13), as does the native decoder's binding.
+Images are decoded with `cv2`, imported at use, unless the caller passes
+`loader=` (path → (H, W, 3) float32 in [0, 1]); the JAX package prefers
+its native C++ decoder, whose binding waits (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ import numpy as np
 import torch
 
 from object_tracking_tpu_torch.data.augment import (
-    AugmentConfig, augment_sequences_batch)
+    AugmentConfig, augment_frames_batch, augment_sequences_batch)
 from object_tracking_tpu_torch.data.voc import Annotation
-from object_tracking_tpu_torch.ops.targets import encode_targets_batch
+from object_tracking_tpu_torch.ops.heatmap import heatmap_encode
+from object_tracking_tpu_torch.ops.targets import (
+    encode_targets_batch, encode_targets_multiscale)
 
 
 def _read_resized(path: str, net_h: int, net_w: int) -> np.ndarray:
@@ -96,7 +102,7 @@ class _GeneratorBase:
         self._epoch = 0
 
     def _aug_seeds(self, n: int) -> np.ndarray:
-        """Per-window seeds of the legacy augmentation."""
+        """Per-window (or per-frame) seeds of the host augmentation."""
         return torch.randint(0, 2**31 - 1, (n,),
                              generator=self._aug_rng).numpy()
 
@@ -138,6 +144,67 @@ class _GeneratorBase:
                     cv2.rectangle(bgr, (int(x1), int(y1)),
                                   (int(x2), int(y2)), (0, 255, 0), 2)
             cv2.imwrite(os.path.join(out, f'{i}.jpg'), bgr)
+
+
+class DetectionBatches(_GeneratorBase):
+    """Detector-training batches over single frames (see the module
+    docstring). `heads` is the static per-head tuple of
+    `ops/targets.encode_targets_multiscale` (anchors in pixels, grid,
+    classes); then `anchors` and the grid are not used for encoding."""
+
+    def __init__(self, annotations: Sequence[Annotation],
+                 labels: Sequence[str], *, net_h: int = 416,
+                 net_w: int = 416, grid_h: int = 13, grid_w: int = 13,
+                 anchors, batch_size: int = 32, max_boxes: int = 50,
+                 augment: bool = True,
+                 aug_config: Optional[AugmentConfig] = None,
+                 seed: int = 0, loader=None, drop_last: bool = True,
+                 debug_dir: Optional[str] = None,
+                 heads: Optional[tuple] = None):
+        super().__init__(labels, net_h, net_w, anchors, batch_size,
+                         max_boxes, grid_h, grid_w, augment, aug_config,
+                         seed, loader, debug_dir)
+        self.annotations = list(annotations)
+        self.drop_last = drop_last
+        self.heads = heads
+
+    def __len__(self):
+        n = len(self.annotations) // self.batch_size
+        if not self.drop_last and len(self.annotations) % self.batch_size:
+            n += 1
+        return n
+
+    def __call__(self):
+        order = self._rng.permutation(len(self.annotations))
+        self._epoch += 1
+        for bi in range(len(self)):
+            idx = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+            yield self._make_batch([self.annotations[i] for i in idx], bi)
+
+    def _make_batch(self, anns: List[Annotation], batch_idx: int) -> Dict:
+        images = self._load_paths([a.filename for a in anns])
+        padded = [_pad_boxes(a, self.labels, self.max_boxes,
+                             self.net_h, self.net_w) for a in anns]
+        boxes = np.stack([p[0] for p in padded])
+        cls = np.stack([p[1] for p in padded])
+        valid = np.stack([p[2] for p in padded])
+        if self.augment:
+            images, boxes = augment_frames_batch(
+                self._aug_seeds(len(anns)), torch.from_numpy(images),
+                torch.from_numpy(boxes), self.aug_config)
+            images, boxes = images.numpy(), boxes.numpy()
+        self._dump_debug(images, boxes, batch_idx)
+        if self.heads is not None:
+            y, b = encode_targets_multiscale(
+                torch.from_numpy(boxes), torch.from_numpy(cls),
+                torch.from_numpy(valid), self.heads, image_h=self.net_h,
+                image_w=self.net_w, true_box_buffer=self.max_boxes)
+            return {'images': images,
+                    'y_true': tuple(a.numpy() for a in y),
+                    'true_boxes': tuple(a.numpy() for a in b)}
+        y, b = self._encode(boxes, cls, valid)
+        return {'images': images, 'y_true': y.numpy(),
+                'true_boxes': b.numpy()}
 
 
 class SequenceBatches(_GeneratorBase):
@@ -204,3 +271,209 @@ class SequenceBatches(_GeneratorBase):
         self._dump_debug(images, boxes, batch_idx)
         return {'images': images, 'y_true': y.numpy(),
                 'true_boxes': b.numpy()}
+
+
+def _host(arrays) -> tuple:
+    """A prior source's outputs (tensors on its device, or numpy) as numpy
+    arrays: one copy to the host per output."""
+    return tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
+                 else np.asarray(a) for a in arrays)
+
+
+class TrackerSequenceBatches(_GeneratorBase):
+    """Single-object pipeline batches: {'feats' (B,T,fh,fw,fc), 'det'
+    (B,T,D), 'target' (B,T,D)}, D = 4 (bbox) or heatmap_size².
+
+    `detector` is a prior source with `get_layer_dims(layer)` and
+    `forward_batch(images, layer) -> (feats, boxes, labels, scores,
+    valid)`: `YOLOv2Detector`, `CfgDetector`, `VGG16PriorSource` (tensors
+    on their device) or `FakeDetector` (numpy). Its outputs come to the
+    host once per forward.
+
+    With `augment=False` every unique frame goes through the detector once
+    (`precompute`, in chunks of 16 frames) and is served from the cache
+    thereafter. With `augment=True` each batch's windows are augmented
+    (one parameter set per window, on the detector's device) and the
+    detector runs on the augmented frames there, one forward per batch;
+    the seeds come from the generator's torch stream, so augment mode is
+    deterministic for a seed but not JAX's draws.
+
+    A missed detection is exactly float32 zeros: `_select_detection`'s
+    default and `det_dropout`'s zeroing both give np.zeros, the presence
+    gate of TinyTracker's residual head reads it as a miss.
+    """
+
+    def __init__(self, windows: Sequence[Sequence[Annotation]],
+                 labels: Sequence[str], detector, *,
+                 net_h: int = 416, net_w: int = 416,
+                 anchors=((1.0, 1.0),), batch_size: int = 4,
+                 target_mode: str = 'bbox',       # 'bbox' | 'heatmap'
+                 heatmap_size: int = 32,
+                 tracked_classes: Optional[Sequence[str]] = None,
+                 augment: bool = True,
+                 aug_config: Optional[AugmentConfig] = None,
+                 seed: int = 0, loader=None, drop_last: bool = True,
+                 feature_layer: str = 'conv_feat',
+                 det_dropout: float = 0.0):
+        super().__init__(labels, net_h, net_w, anchors, batch_size, 1,
+                         1, 1, augment, aug_config, seed, loader)
+        self.det_dropout = float(det_dropout)
+        self.windows = [list(w) for w in windows]
+        self.detector = detector
+        self.target_mode = target_mode
+        self.heatmap_size = heatmap_size
+        self.tracked_classes = (
+            {c.lower() for c in tracked_classes}
+            if tracked_classes else None)
+        self.drop_last = drop_last
+        self.feature_layer = feature_layer
+        self._cache: Dict[str, Tuple] = {}
+
+    def __len__(self):
+        n = len(self.windows) // self.batch_size
+        if not self.drop_last and len(self.windows) % self.batch_size:
+            n += 1
+        return n
+
+    def precompute(self, chunk: int = 16) -> None:
+        """Every unique frame through the detector once, `chunk` frames per
+        forward, into the cache."""
+        paths = list(dict.fromkeys(a.filename for win in self.windows
+                                   for a in win))
+        for i in range(0, len(paths), chunk):
+            batch_paths = paths[i:i + chunk]
+            prior = _host(self.detector.forward_batch(
+                self._load_paths(batch_paths), layer=self.feature_layer))
+            for j, p in enumerate(batch_paths):
+                self._cache[p] = tuple(a[j] for a in prior)
+
+    def _frame_prior(self, ann: Annotation):
+        if ann.filename not in self._cache:
+            self.precompute()
+        return self._cache[ann.filename]
+
+    def _select_detection(self, want: str, boxes, labels, scores, valid
+                          ) -> np.ndarray:
+        """The best-scoring valid detection of class `want` (the first of
+        equal scores) → (4,) center-format normalised box, zeros when
+        none."""
+        det = np.zeros((4,), np.float32)
+        best = -1.0
+        for b, l, s, v in zip(boxes, labels, scores, valid):
+            if not v or s <= best:
+                continue
+            name = self.labels[int(l)].lower() if int(l) < len(
+                self.labels) else ''
+            if self.tracked_classes is not None and \
+                    name not in self.tracked_classes:
+                continue
+            if name != want:
+                continue
+            best = s
+            det = np.asarray(b, np.float32)
+        return det
+
+    def _single_object_io(self, ann: Annotation):
+        """The first GT object and the best detection of its class →
+        (feats, det_in (4,) center, gt (4,) corner), both normalised."""
+        obj = ann.objects[0]
+        sx, sy = 1.0 / max(ann.width, 1), 1.0 / max(ann.height, 1)
+        gt = np.array([obj.xmin * sx, obj.ymin * sy,
+                       obj.xmax * sx, obj.ymax * sy], np.float32)
+        feats, boxes, labels, scores, valid = self._frame_prior(ann)
+        det = self._select_detection(obj.label.lower(), boxes, labels,
+                                     scores, valid)
+        return feats, det, gt
+
+    def _augmented_io(self, wins: List[List[Annotation]]):
+        """Augment each window on the detector's device, run the detector
+        on the augmented frames there (one forward), pull its outputs and
+        the augmented GT boxes to the host."""
+        b, t = len(wins), len(wins[0])
+        flat = [a.filename for w in wins for a in w]
+        images = self._load_paths(flat).reshape(
+            (b, t, self.net_h, self.net_w, 3))
+        gt_px = np.zeros((b, t, 1, 4), np.float32)
+        want: List[List[str]] = []
+        for i, win in enumerate(wins):
+            row = []
+            for j, a in enumerate(win):
+                bx, _, _ = _pad_boxes(a, self.labels, 1,
+                                      self.net_h, self.net_w)
+                gt_px[i, j] = bx
+                row.append(a.objects[0].label.lower())
+            want.append(row)
+        device = getattr(self.detector, 'device', torch.device('cpu'))
+        frames, gt_dev = augment_sequences_batch(
+            self._aug_seeds(b),
+            torch.from_numpy(images).to(device, non_blocking=True),
+            torch.from_numpy(gt_px).to(device, non_blocking=True),
+            self.aug_config)
+        feats, dbox, dlab, dsc, dval = _host(self.detector.forward_batch(
+            frames.reshape((b * t,) + tuple(frames.shape[2:])),
+            layer=self.feature_layer))
+        feats = feats.reshape((b, t) + feats.shape[1:])
+        scale = np.array([self.net_w, self.net_h,
+                          self.net_w, self.net_h], np.float32)
+        gt = gt_dev.cpu().numpy()[:, :, 0, :] / scale    # corner, normalised
+        det = np.zeros((b, t, 4), np.float32)
+        for i in range(b):
+            for j in range(t):
+                k = i * t + j
+                det[i, j] = self._select_detection(
+                    want[i][j], dbox[k], dlab[k], dsc[k], dval[k])
+        return feats, det, gt
+
+    def __call__(self):
+        if not self.augment and not self._cache:
+            self.precompute()
+        order = self._rng.permutation(len(self.windows))
+        self._epoch += 1
+        for bi in range(len(self)):
+            idx = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+            yield self._make_batch([self.windows[i] for i in idx])
+
+    def _heatmap(self, x, y, w, h) -> np.ndarray:
+        return heatmap_encode(*(torch.from_numpy(np.asarray(v, np.float32))
+                                for v in (x, y, w, h)),
+                              hmap_size=self.heatmap_size).numpy()
+
+    def _make_batch(self, wins: List[List[Annotation]]) -> Dict:
+        if self.augment:
+            feats, det, gt = self._augmented_io(wins)
+        else:
+            feats_b, det_b, gt_b = [], [], []
+            for win in wins:
+                f_t, d_t, g_t = zip(*[self._single_object_io(a)
+                                      for a in win])
+                feats_b.append(np.stack(f_t))
+                det_b.append(np.stack(d_t))
+                gt_b.append(np.stack(g_t))
+            feats = np.stack(feats_b)             # (B, T, fh, fw, fc)
+            det = np.stack(det_b)                 # (B, T, 4) center
+            gt = np.stack(gt_b)                   # (B, T, 4) corner
+
+        if self.det_dropout > 0.0:
+            # a dropped frame is exactly float32 zeros (np.where against
+            # zeros, never an epsilon): the residual head's presence gate
+            # routes on sum(|det|) > 0
+            keep = self._rng.rand(*det.shape[:2]) >= self.det_dropout
+            det = np.where(keep[..., None], det,
+                           np.zeros_like(det)).astype(np.float32)
+
+        # GT → center-format normalised target
+        cx = 0.5 * (gt[..., 0] + gt[..., 2])
+        cy = 0.5 * (gt[..., 1] + gt[..., 3])
+        w = gt[..., 2] - gt[..., 0]
+        h = gt[..., 3] - gt[..., 1]
+        target = np.stack([cx, cy, w, h], axis=-1).astype(np.float32)
+
+        if self.target_mode == 'heatmap':
+            # top-left-format heatmaps for both the detection input and
+            # the target
+            det = self._heatmap(det[..., 0] - det[..., 2] / 2,
+                                det[..., 1] - det[..., 3] / 2,
+                                det[..., 2], det[..., 3])
+            target = self._heatmap(gt[..., 0], gt[..., 1], w, h)
+        return {'feats': feats, 'det': det.astype(np.float32),
+                'target': target}

@@ -55,20 +55,28 @@ _TRUNCATED_STD = 0.87962566103423978
 
 
 @torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's lecun_normal in place: a normal truncated at ±2 standard
+    deviations, with standard deviation sqrt(1 / fan_in)."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNCATED_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+@torch.no_grad()
 def init_like_flax(module: nn.Module, seed: int) -> nn.Module:
     """Initialise `module` in place as flax initialises the JAX model, with
     torch's RNG seeded by `seed` (JAX's PRNG stream cannot be reproduced):
-    every conv kernel lecun_normal (truncated normal, fan-in, std
+    every conv and dense kernel lecun_normal (truncated normal, fan-in, std
     sqrt(1/fan_in)), biases 0, BatchNorm scale 1, bias 0 and statistics
-    (0, 1); each ConvLSTM keeps a forget-gate bias of +1 and an orthogonal
-    recurrent kernel. torch's default conv init has a third of that
-    variance. Returns `module`."""
+    (0, 1); then each module's own `reset_recurrent_parameters` (a
+    ConvLSTM's forget-gate bias +1 and orthogonal recurrent kernel, an
+    LSTM's orthogonal recurrent kernels, a zero-initialised residual
+    head). torch's default conv init has a third of that variance.
+    Returns `module`."""
     def build():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNCATED_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
-                                      2.0 * std)
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                lecun_normal_(m.weight, m.weight[0].numel())
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, BatchNorm):

@@ -286,6 +286,28 @@ class DarknetCfgNet(nn.Module):
         return {'heads': heads, 'final': x.float().permute(0, 2, 3, 1)}
 
 
+@torch.no_grad()
+def head_grids(net: DarknetCfgNet, size: int, device) -> list:
+    """Each head's (grid_h, grid_w) of a cfg net at input size², from one
+    forward on a zero image (running statistics read, none written)."""
+    was_training = net.training
+    out = net.eval()(torch.zeros((1, size, size, 3), device=device))
+    net.train(was_training)
+    return [(int(h.shape[1]), int(h.shape[2])) for h in out['heads']]
+
+
+class RegionNetout(nn.Module):
+    """A one-[region]-head cfg net as a detector-step model:
+    forward(images, train=False) → {'netout': its head's netout}."""
+
+    def __init__(self, net: DarknetCfgNet):
+        super().__init__()
+        self.net = net
+
+    def forward(self, images: torch.Tensor, train: bool = False):
+        return {'netout': self.net(images, train=train)['heads'][0]}
+
+
 def build_from_cfg(cfg_text: str, dtype: torch.dtype = torch.float32
                    ) -> Tuple[DarknetCfgNet, Tuple[int, int, int]]:
     """cfg text → (torch module, (H, W, C) input geometry)."""

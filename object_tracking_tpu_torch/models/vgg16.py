@@ -12,7 +12,12 @@ of the NMS kernel per call).
 - images come in as (B, H, W, 3) and features leave in the JAX layouts
   (NHWC, float32);
 - weights load from {'layer/leaf': array} with HWIO kernels (an `.npz`,
-  or `ops/caffemodel.py`'s mapping of a `.caffemodel`).
+  or `ops/caffemodel.py`'s mapping of a `.caffemodel`);
+- `VGG16PriorSource.det_apply` is the dense head as a model of the
+  standalone detector step (`training/steps.py::make_detector_train_step`
+  with anchors `VGG_DET_ANCHOR`): `det_apply(images, train)` →
+  {'netout': det_netout}, sharing the source's parameters. VGG16 has no
+  BatchNorm, so `train` changes nothing.
 """
 
 from __future__ import annotations
@@ -66,27 +71,55 @@ class VGG16(nn.Module):
         if det_classes:
             self.det_head = nn.Conv2d(cin, 5 + det_classes, 1)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images (B, H, W, 3) in [0, 1] →
-        {'conv5_3': (B,H/16,W/16,512), 'pool5': (B,H/32,W/32,512),
-         'fc7': (B, fc_features)[, 'det_netout': (B,GH,GW,1,5+C)]}."""
+    def _convs(self, images: torch.Tensor):
+        """images (B, H, W, 3) → (conv5_3, pool5), NCHW in the compute
+        type."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         for name, _ in _VGG_PLAN:
             x = F.relu(conv(x, getattr(self, name)))
             if name in _BLOCK_ENDS:
                 x = F.max_pool2d(x, 2, 2)
-        pool5 = F.max_pool2d(x, 2, 2)
+        return x, F.max_pool2d(x, 2, 2)
+
+    def _det_netout(self, pool5: torch.Tensor) -> torch.Tensor:
+        det = conv(pool5, self.det_head).float()
+        b, _, gh, gw = det.shape
+        return det.permute(0, 2, 3, 1).reshape(b, gh, gw, 1,
+                                               5 + self.det_classes)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) in [0, 1] →
+        {'conv5_3': (B,H/16,W/16,512), 'pool5': (B,H/32,W/32,512),
+         'fc7': (B, fc_features)[, 'det_netout': (B,GH,GW,1,5+C)]}."""
+        x, pool5 = self._convs(images)
         y = F.relu(conv(pool5, self.fc6))
         y = F.relu(conv(y, self.fc7))
         out = {'conv5_3': x.float().permute(0, 2, 3, 1),
                'pool5': pool5.float().permute(0, 2, 3, 1),
                'fc7': y.mean(dim=(2, 3)).float()}
         if self.det_classes:
-            det = conv(pool5, self.det_head).float()
-            b, _, gh, gw = det.shape
-            out['det_netout'] = det.permute(0, 2, 3, 1).reshape(
-                b, gh, gw, 1, 5 + self.det_classes)
+            out['det_netout'] = self._det_netout(pool5)
         return out
+
+    def detection_netout(self, images: torch.Tensor) -> torch.Tensor:
+        """Only the dense head's netout (B, GH, GW, 1, 5+C): the layers
+        that feed it, without fc6 and fc7."""
+        return self._det_netout(self._convs(images)[1])
+
+
+class DetApply(nn.Module):
+    """The dense detection head of a `VGG16` as a detector-step model:
+    forward(images, train=False) → {'netout': det_netout}."""
+
+    def __init__(self, vgg: VGG16):
+        super().__init__()
+        if not vgg.det_classes:
+            raise ValueError('the VGG16 has no detection head '
+                             '(det_classes=0)')
+        self.vgg = vgg
+
+    def forward(self, images: torch.Tensor, train: bool = False):
+        return {'netout': self.vgg.detection_netout(images)}
 
 
 def _numpy(a) -> np.ndarray:
@@ -123,6 +156,12 @@ class VGG16PriorSource:
         if weights_path:
             self.load_npz_weights(weights_path)
         self.delegate = detection_delegate
+
+    @property
+    def det_apply(self) -> DetApply:
+        """The dense head as a trainable model (see the module
+        docstring); its parameters are this source's."""
+        return DetApply(self.module)
 
     def load_params(self, named: Dict[str, np.ndarray]) -> None:
         """Load {'layer/leaf': array} ('conv1_1/kernel' HWIO, 'fc6/bias',

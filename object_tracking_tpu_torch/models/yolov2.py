@@ -11,7 +11,8 @@ Everything runs on the detector's device ('cuda' unless the caller passes
 `device='cpu'`; a missing card raises). Decode and NMS of a whole batch
 are one `decode_and_nms` call, so on the card the NMS kernel launches
 once per call however many images there are (the JAX code vmaps one
-decode per image). `detect_images` is the body of `predict` on arrays;
+decode per image). `nms_impl` chooses the NMS route of every decode
+(`ops/nms.py::greedy_nms_scores`; 'auto' is the kernel on the card). `detect_images` is the body of `predict` on arrays;
 only image paths and drawing need `cv2`, which is imported there.
 """
 
@@ -64,10 +65,11 @@ class YOLOv2Detector:
 
     def __init__(self, config: Optional[DetectorConfig] = None,
                  seed: int = 0, dtype: torch.dtype = torch.float32,
-                 device='cuda'):
+                 device='cuda', nms_impl: str = 'auto'):
         self.config = config or DetectorConfig()
         cfg = self.config
         self.device = resolve_device(device)
+        self.nms_impl = nms_impl
         self.model = seeded(seed, lambda: Darknet19(
             cfg.num_classes, cfg.num_anchors, dtype, cfg.width_div))
         self.model = self.model.to(self.device).eval()
@@ -106,7 +108,8 @@ class YOLOv2Detector:
         cfg = self.config
         return decode_and_nms(netout, self.anchors,
                               obj_threshold=cfg.obj_threshold,
-                              nms_threshold=cfg.nms_threshold, top_k=top_k)
+                              nms_threshold=cfg.nms_threshold, top_k=top_k,
+                              nms_impl=self.nms_impl)
 
     def _named(self, dets, lower: bool = False) -> List[List[Detection]]:
         """Batched decode results → per image [(label, score, box)]."""

@@ -1,4 +1,5 @@
-"""Tensor ops of the serving path: boxes, decode, NMS, track matching."""
+"""Tensor ops: boxes, decode, NMS, track matching, target encoding and
+the tracker's heatmap codec."""
 
 from object_tracking_tpu_torch.ops.boxes import (  # noqa: F401
     iou_center, iou_corner, pairwise_iou_center, cxcywh_to_xyxy,
@@ -7,4 +8,7 @@ from object_tracking_tpu_torch.ops.boxes import (  # noqa: F401
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores  # noqa: F401
 from object_tracking_tpu_torch.ops.decode import (  # noqa: F401
     decode_netout, decode_and_nms, boxes_to_list,
+)
+from object_tracking_tpu_torch.ops.heatmap import (  # noqa: F401
+    heatmap_encode, heatmap_decode_rect,
 )

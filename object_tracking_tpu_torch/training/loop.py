@@ -4,9 +4,11 @@ Port of `object_tracking_tpu/training/loop.py`. The loop owns a TrainState
 and step functions; checkpointing, early stopping, plateau LR and metric
 logging are explicit components wired here.
 
-- Host batches come from a background thread (`_prefetch`) that only runs
-  the host pipeline (decode, padding); it never touches the device, and an
-  exception there is raised again on the main thread.
+- Host batches come from a background thread (`_prefetch`) that runs the
+  generator; an exception there is raised again on the main thread. Most
+  generators are host work only (decode, padding); `TrackerSequenceBatches`
+  also runs its frozen prior on the device from that thread, on the same
+  stream as the steps, which orders the two.
 - `to_device` (identity by default; the steps move their batch
   themselves) runs on the main thread.
 - A step's metrics stay device tensors; `_MetricHistory` pulls them with

@@ -1,31 +1,40 @@
-"""Train and eval steps of the joint detect+track model.
+"""Train and eval steps of every model family.
 
-Port of the joint steps of `object_tracking_tpu/training/steps.py`. Each
-factory closes over the anchors and the loss and joint configs and returns
-`step(state, batch)`. A train step returns `(state, metrics)` with the
-state updated in place; an eval step returns `metrics`. The loss is
-0.7·track + 0.3·detect YOLOv2 losses (`JointConfig` weights) over the B·T
-frames; the MoE auxiliary term is 0 until the MoE head is ported (ROADMAP
-queue 1, item 16).
+Port of `object_tracking_tpu/training/steps.py`. Each factory closes over
+its configuration and returns `step(state, batch)`. A train step returns
+`(state, metrics)` with the state updated in place; an eval step returns
+`metrics`.
+
+- Joint detect+track: the loss is 0.7·track + 0.3·detect YOLOv2 losses
+  (`JointConfig` weights) over the B·T frames; the MoE auxiliary term is 0
+  until the MoE head is ported (ROADMAP queue 1, item 16). The fused steps
+  take the raw uint8 batches of `SequenceBatches(raw_mode=True)` and run
+  /255, augmentation (one parameter set per window, from generators
+  seeded by the batch's host 'aug_seeds'), target encoding, forward,
+  backward and Adam on the device.
+- Standalone detector: one YOLOv2 loss over `{'netout'}` of a model
+  called as `model(images, train=True)` (`Darknet19`, a cfg net's
+  [region] head, VGG16's `det_apply`), or, for multi-head [yolo] cfg
+  nets, the sum of one loss per head at its own grid and anchors.
+- Single-object tracker: binary cross-entropy ('bce') or Huber ('huber')
+  of `TinyTracker(feats, det)` against the target, plus the heatmap
+  accuracy for the heatmap head.
 
 A step moves the host batch to the model's device itself (non-blocking
 copies) and makes no host sync: its metrics stay 0-d device tensors, and
 nothing in it calls `.item()`, `nonzero` or boolean indexing, or branches
 on a device value. The fit loop pulls the metrics once per epoch.
 
-The fused steps take the raw uint8 batches of
-`SequenceBatches(raw_mode=True)` and run /255, augmentation (one parameter
-set per window, from generators seeded by the batch's host 'aug_seeds'),
-target encoding, forward, backward and Adam on the device. Train steps put
-the module in `train()` mode, so batch-statistics BatchNorm updates the
-running statistics; eval steps put it in `eval()` mode and write nothing,
-whether they normalise with batch statistics (the default, as the JAX
-eval steps) or with the running ones.
+Train steps put the module in `train()` mode, so batch-statistics
+BatchNorm updates the running statistics (a model without BatchNorm, as
+VGG16 or TinyTracker, has none to update); eval steps put it in `eval()`
+mode and write nothing, whether they normalise with batch statistics (the
+default, as the JAX eval steps) or with the running ones.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,18 +42,22 @@ import torch
 from object_tracking_tpu_torch.config import JointConfig, LossConfig
 from object_tracking_tpu_torch.data.augment import (
     AugmentConfig, augment_sequences_batch)
-from object_tracking_tpu_torch.models.losses import yolo_loss
+from object_tracking_tpu_torch.models.losses import (
+    binary_crossentropy, heatmap_accuracy, yolo_loss)
 from object_tracking_tpu_torch.ops.targets import encode_targets_batch
 
 HOST_KEYS = ('aug_seeds',)      # read on the host: they seed generators
 
 
 def to_device(batch: Dict, device) -> Dict:
-    """Host batch (numpy or CPU tensors) → tensors on `device` by
-    non-blocking copies, which do not sync with the host; the keys of
-    HOST_KEYS stay on the host."""
-    return {k: (np.asarray(v) if k in HOST_KEYS
-                else torch.as_tensor(v).to(device, non_blocking=True))
+    """Host batch (numpy or CPU tensors, or tuples of them) → tensors on
+    `device` by non-blocking copies, which do not sync with the host; the
+    keys of HOST_KEYS stay on the host."""
+    def move(v):
+        if isinstance(v, (tuple, list)):
+            return tuple(move(a) for a in v)
+        return torch.as_tensor(v).to(device, non_blocking=True)
+    return {k: (np.asarray(v) if k in HOST_KEYS else move(v))
             for k, v in batch.items()}
 
 
@@ -71,16 +84,21 @@ def _merge_time(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
-def _yolo_loss_bt(netout, batch, anchors, loss_cfg: LossConfig, step: int):
+def _yolo(netout, y_true, true_boxes, anchors, loss_cfg: LossConfig,
+          step: int):
     return yolo_loss(
-        _merge_time(netout), _merge_time(batch['y_true']),
-        _merge_time(batch['true_boxes']), anchors, step,
+        netout, y_true, true_boxes, anchors, step,
         warm_up_batches=loss_cfg.warm_up_batches,
         object_scale=loss_cfg.object_scale,
         no_object_scale=loss_cfg.no_object_scale,
         coord_scale=loss_cfg.coord_scale,
         class_scale=loss_cfg.class_scale,
         best_iou_threshold=loss_cfg.best_iou_threshold)
+
+
+def _yolo_loss_bt(netout, batch, anchors, loss_cfg: LossConfig, step: int):
+    return _yolo(_merge_time(netout), _merge_time(batch['y_true']),
+                 _merge_time(batch['true_boxes']), anchors, loss_cfg, step)
 
 
 def _joint_loss(model, batch, anchors, loss_cfg: LossConfig,
@@ -103,15 +121,21 @@ def _joint_loss(model, batch, anchors, loss_cfg: LossConfig,
     return loss, metrics
 
 
-def _train_on(state, batch, anchors, loss_cfg, joint_cfg):
-    """Forward, backward and one optimizer step on a device batch."""
+def _optimize(state, loss_fn):
+    """Forward (`loss_fn(model) -> (loss, metrics)`) in train() mode,
+    backward and one optimizer step."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = _joint_loss(state.model, batch, anchors, loss_cfg,
-                                joint_cfg, state.step, train=True)
+    loss, metrics = loss_fn(state.model)
     loss.backward()
     state.apply_gradients()
     return state, {k: v.detach() for k, v in metrics.items()}
+
+
+def _train_on(state, batch, anchors, loss_cfg, joint_cfg):
+    """Forward, backward and one optimizer step on a device batch."""
+    return _optimize(state, lambda model: _joint_loss(
+        model, batch, anchors, loss_cfg, joint_cfg, state.step, train=True))
 
 
 @torch.no_grad()
@@ -226,5 +250,143 @@ def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
                                          encode, augment=False)
         return _eval_on(state, batch, anchors.on(device), loss_cfg,
                         joint_cfg, use_batch_stats)
+
+    return step
+
+
+DETECTOR_METRICS = ('loss', 'recall', 'loss_xy', 'loss_wh', 'loss_conf',
+                    'loss_class')
+
+
+def make_detector_train_step(anchors,
+                             loss_cfg: Optional[LossConfig] = None
+                             ) -> Callable:
+    """Standalone detector training. Batch: images (B, H, W, 3), y_true
+    (B, GH, GW, A, 5+C), true_boxes (B, 1, 1, 1, TB, 4); the model returns
+    {'netout': (B, GH, GW, A, 5+C)}. Metrics: DETECTOR_METRICS."""
+    loss_cfg = loss_cfg or LossConfig()
+    anchors = _Anchors(anchors)
+
+    def loss_fn(model, batch, step):
+        out = model(batch['images'], train=True)
+        loss, aux = _yolo(out['netout'], batch['y_true'],
+                          batch['true_boxes'],
+                          anchors.on(batch['images'].device), loss_cfg, step)
+        return loss, {k: aux[k] for k in DETECTOR_METRICS}
+
+    def step(state, batch):
+        batch = to_device(batch, _device(state.model))
+        return _optimize(state, lambda model: loss_fn(model, batch,
+                                                      state.step))
+
+    return step
+
+
+def head_anchor_cells(head_specs: Sequence[Tuple], net_size
+                      ) -> Tuple[np.ndarray, ...]:
+    """Each head's pixel anchors in its own grid-cell units: (A, 2)."""
+    net_h, net_w = net_size
+    return tuple(np.asarray(a, np.float32).reshape(-1, 2)
+                 * np.asarray([gw / net_w, gh / net_h], np.float32)
+                 for a, gh, gw, _ in head_specs)
+
+
+def make_multihead_detector_train_step(head_specs, net_size,
+                                       loss_cfg: Optional[LossConfig]
+                                       = None) -> Callable:
+    """Standalone training of multi-head ([yolo], v3-family) cfg nets: one
+    YOLOv2 loss per head at its own grid, with its pixel anchors converted
+    to that grid's cells, summed; the recall is the mean of the heads'.
+
+    Args:
+      head_specs: per head (anchors_px flat tuple, grid_h, grid_w,
+        num_classes), as `DetectionBatches(heads=...)` encodes them.
+      net_size: (net_h, net_w) input pixels.
+      Batch: {'images' (B,H,W,3), 'y_true': tuple per head,
+              'true_boxes': tuple per head}; the model returns
+              {'heads': [netout per head]}.
+    """
+    loss_cfg = loss_cfg or LossConfig()
+    cells = [_Anchors(a) for a in head_anchor_cells(head_specs, net_size)]
+
+    def loss_fn(model, batch, step):
+        out = model(batch['images'], train=True)
+        device = batch['images'].device
+        total, metrics, recalls = 0.0, {}, []
+        for i, anchors in enumerate(cells):
+            loss, aux = _yolo(out['heads'][i], batch['y_true'][i],
+                              batch['true_boxes'][i], anchors.on(device),
+                              loss_cfg, step)
+            total = total + loss
+            for k in ('loss', 'loss_xy', 'loss_wh', 'loss_conf',
+                      'loss_class'):
+                metrics[k] = metrics[k] + aux[k] if k in metrics else aux[k]
+            recalls.append(aux['recall'])
+        metrics['recall'] = sum(recalls) / len(recalls)
+        return total, {k: metrics[k] for k in DETECTOR_METRICS}
+
+    def step(state, batch):
+        batch = to_device(batch, _device(state.model))
+        return _optimize(state, lambda model: loss_fn(model, batch,
+                                                      state.step))
+
+    return step
+
+
+def _huber(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean Huber loss with delta 1 (smooth L1)."""
+    diff = pred.float() - target
+    a = diff.abs()
+    return torch.mean(torch.where(a < 1.0, 0.5 * diff * diff, a - 0.5))
+
+
+# bce: the reference's loss on the sigmoid outputs, even for continuous box
+# targets; huber: keeps pulling a box to a tight fit where bce's gradient
+# has vanished
+TINY_LOSSES = {'bce': binary_crossentropy, 'huber': _huber}
+
+
+def _tiny_loss_fn(loss_name: str) -> Callable:
+    if loss_name not in TINY_LOSSES:
+        raise ValueError(f'unknown tracker loss {loss_name!r}')
+    return TINY_LOSSES[loss_name]
+
+
+def _tiny_loss(model, batch, heatmap: bool, loss_fn: Callable):
+    """(loss, metrics) of the single-object tracker on a device batch,
+    with the heatmap accuracy for the heatmap head."""
+    pred = model(batch['feats'], batch['det'])
+    target = batch['target'].float()
+    loss = loss_fn(pred, target)
+    metrics = {'loss': loss}
+    if heatmap:
+        metrics['heatmap_acc'] = heatmap_accuracy(pred, target)
+    return loss, metrics
+
+
+def make_tiny_train_step(heatmap: bool = False,
+                         loss_name: str = 'bce') -> Callable:
+    """TinyTracker / TinyHeatmapTracker step. Batch: feats (B, T, h, w, c),
+    det (B, T, D), target (B, T, out_dim); `loss_name` a key of
+    TINY_LOSSES."""
+    loss_fn = _tiny_loss_fn(loss_name)
+
+    def step(state, batch):
+        batch = to_device(batch, _device(state.model))
+        return _optimize(state, lambda model: _tiny_loss(
+            model, batch, heatmap, loss_fn))
+
+    return step
+
+
+def make_tiny_eval_step(heatmap: bool = False,
+                        loss_name: str = 'bce') -> Callable:
+    loss_fn = _tiny_loss_fn(loss_name)
+
+    @torch.no_grad()
+    def step(state, batch):
+        state.model.eval()
+        return _tiny_loss(state.model, to_device(batch, _device(state.model)),
+                          heatmap, loss_fn)[1]
 
     return step

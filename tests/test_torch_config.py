@@ -16,7 +16,8 @@ def test_constants_equal(name):
 
 
 @pytest.mark.parametrize('cls', ['DetectorConfig', 'LossConfig',
-                                 'JointConfig', 'TrainConfig'])
+                                 'TrackerConfig', 'JointConfig',
+                                 'TrainConfig'])
 def test_config_fields_have_the_jax_defaults(cls):
     port, ref = getattr(tcfg, cls)(), getattr(jcfg, cls)()
     for field in dataclasses.fields(port):
@@ -33,8 +34,8 @@ def test_detector_config_num_classes():
 def test_config_holds_the_ported_sections():
     cfg = tcfg.Config()
     assert [f.name for f in dataclasses.fields(cfg)] == [
-        'detector', 'loss', 'joint', 'train']
+        'detector', 'loss', 'tracker', 'joint', 'train']
     ref = jcfg.Config()
-    for name in ('detector', 'loss', 'joint', 'train'):
+    for name in ('detector', 'loss', 'tracker', 'joint', 'train'):
         assert type(getattr(cfg, name)).__name__ == \
             type(getattr(ref, name)).__name__

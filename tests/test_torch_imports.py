@@ -52,7 +52,9 @@ def test_package_has_the_slice_modules():
                    'data.windows', 'data.generators', 'data.synthetic',
                    'training', 'training.state', 'training.steps',
                    'training.callbacks', 'training.metrics',
-                   'training.checkpoint', 'training.loop', 'trainer'):
+                   'training.checkpoint', 'training.loop', 'trainer',
+                   'ops.heatmap', 'models.fake_detector',
+                   'models.tiny_tracker'):
         assert f'object_tracking_tpu_torch.{module}' in names
     for source in ('nms_scores.cu', 'decode_nms.cu'):
         assert (PACKAGE / 'ops' / 'cuda' / 'csrc' / source).is_file()
