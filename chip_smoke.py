@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, detector, training and single-object
-paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, detector, training, single-object,
+deep-head and exported-serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -99,7 +99,24 @@ JSON line:
    B=32 (DetectorConfig.batch_size) in float32 and bfloat16. Then
    make_multihead_detector_train_step on a two-[yolo]-head cfg at 416²:
    one step on the card and on the CPU;
-11. the kernels line (each kernel's launches on the driven paths, error,
+11. deep: the deep ConvLSTM head (convlstm_layers=2, `StackedConvLSTM`).
+   One float32 fused train step at the train phase's reduced cut on the
+   card and on the CPU (the same checks); at bench.py's model three
+   streamed predict_window calls, kernel 1 once per call, identical to
+   nms_impl='sort'; frames/s at B=1 against the single-layer head's in the
+   same process (median of three samples, all kept) and both profiles;
+12. serve: the train phase's trained weights exported with torch.export
+   (`serving.export_joint`, kernel 1 as the custom op
+   `ott_torch::nms_scores`) at B=1 and B=8, T=4, 416², with each export's
+   seconds and the artifact's MB. Each artifact serves three streamed
+   calls, kernel 1 once per call: labels and ids equal to JointPredictor's
+   on the same weights and frames, boxes and scores within 1e-5. The B=1
+   artifact is reloaded by a fresh interpreter that never imports the
+   port's models and serves the same. A deep-head artifact at the reduced
+   cut round-trips its 4-leaf state. Frames/s served and through
+   JointPredictor at B=1 and B=8 in float32 (median of three samples,
+   all kept);
+13. the kernels line (each kernel's launches on the driven paths, error,
    times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -141,6 +158,8 @@ from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.targets import (
     encode_targets_batch, encode_targets_multiscale)
+from object_tracking_tpu_torch.serving import (
+    ServedJointPredictor, export_joint, save_artifact)
 from object_tracking_tpu_torch.training import (
     CheckpointManager, TrainState, fit, make_detector_train_step,
     make_joint_train_step_fused, make_multihead_detector_train_step,
@@ -977,11 +996,11 @@ def train_step_fn(net: int, augment: bool):
 
 
 def train_state(device, width_div: int = 1, dtype=torch.float32,
-                seed: int = 0) -> TrainState:
+                seed: int = 0, layers: int = 1) -> TrainState:
     model = init_like_flax(MultiObjDetTracker(
         num_classes=NUM_CLASSES, num_anchors=5,
         convlstm_features=512 // width_div, width_div=width_div,
-        dtype=dtype), seed)
+        dtype=dtype, convlstm_layers=layers), seed)
     return TrainState.create(model.to(device), make_optimizer(TRAIN_LR))
 
 
@@ -1039,21 +1058,23 @@ def step_parity(cpu: TrainState, card: TrainState, step, batch,
     return out
 
 
-def card_matches_cpu(device) -> dict:
+def card_matches_cpu(device, layers: int = 1) -> dict:
     """One fused float32 step without augmentation of a reduced model
-    (width_div=8, 128², T=4, B=2) on the card and on the CPU, from the
-    same weights and batch: metrics, gradients, updated parameters and
-    BatchNorm statistics within the CPU parity tests' tolerances."""
+    (width_div=8, 128², T=4, B=2, `layers` ConvLSTM layers) on the card
+    and on the CPU, from the same weights and batch: metrics, gradients,
+    updated parameters and BatchNorm statistics within the CPU parity
+    tests' tolerances."""
     net = 128
     raw = train_batch(5, 2, net=net, objects=4)
-    cpu = train_state('cpu', width_div=8)
+    cpu = train_state('cpu', width_div=8, layers=layers)
     card = TrainState.create(copy.deepcopy(cpu.model).to(device),
                              make_optimizer(TRAIN_LR))
     out = step_parity(cpu, card, train_step_fn(net, augment=False), raw,
                       TRAIN_LR)
     if out['params_moved'] != out['params']:
         raise AssertionError(f'a parameter did not move: {out}')
-    return {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8}, **out}
+    return {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8,
+                      'convlstm_layers': layers}, **out}
 
 
 def checkpoint_round_trip(device) -> dict:
@@ -1122,8 +1143,10 @@ def train_readings(state, step, batches, key: str, readings: dict,
         raise AssertionError(f'non-finite loss at {key}: {out["losses"]}')
 
 
-def train_phase(device, smi: str) -> dict:
-    """The joint trainer's fused step at bench.py's model on the card."""
+def train_phase(device, smi: str):
+    """The joint trainer's fused step at bench.py's model on the card.
+    Returns its reading and the weights of its 30 learning steps (on the
+    host), which the serve phase exports."""
     parity = card_matches_cpu(device)
     round_trip = checkpoint_round_trip(device)
 
@@ -1184,7 +1207,7 @@ def train_phase(device, smi: str) -> dict:
             'sync_debug_step': 'no sync raised',
             'loss_trajectory': trajectory,
             'loss_first5_mean': first5, 'loss_last5_mean': last5,
-            'readings': readings, 'serve': serve_out, 'card': smi}
+            'readings': readings, 'serve': serve_out, 'card': smi}, weights
 
 
 def serve_trained(model, device) -> dict:
@@ -1567,6 +1590,259 @@ def detector_train_phase(device, smi: str) -> dict:
             'multihead_card_vs_cpu': multihead_parity(device), 'card': smi}
 
 
+# ------------------------------------------------ deep head and serving
+DEEP_LAYERS = 2        # the deep head's ConvLSTM depth on the chip
+SERVED_TOL = 1e-5      # served boxes and scores against JointPredictor's
+
+
+def joint_model(device, layers: int = 1):
+    """bench.py's joint model (416², 12 classes, 5 anchors, ConvLSTM-512,
+    full width) with `layers` ConvLSTM layers, random weights from seed 0,
+    in eval() mode (serving writes no statistic)."""
+    torch.manual_seed(0)
+    return MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
+                              convlstm_features=512, width_div=1,
+                              convlstm_layers=layers).to(device).eval()
+
+
+def streamed_windows(pred, clips) -> list:
+    """One stream of predict_window calls, one per (1, T, H, W, 3) clip;
+    kernel 1 must launch once per call. Returns the per-frame lists."""
+    pred.reset_state()
+    cuda_nms.nms_scores.launches = 0
+    frames = []
+    for i, clip in enumerate(clips):
+        frames.extend(pred.predict_window(clip[0]))
+        if cuda_nms.nms_scores.launches != i + 1:
+            raise AssertionError('nms_scores did not launch once per '
+                                 'predict_window call')
+    return frames
+
+
+def deep_phase(device, smi: str) -> dict:
+    """The deep ConvLSTM head (convlstm_layers=2): one fused train step at
+    the reduced cut on the card against the CPU; at bench.py's model three
+    streamed predict_window calls, kernel 1 once per call, identical to
+    nms_impl='sort'; and the B=1 call's cost against the single-layer
+    head's in the same process."""
+    parity = card_matches_cpu(device, layers=DEEP_LAYERS)
+    clips = requests(np.random.RandomState(2), 1, 3)
+    model = joint_model(device, DEEP_LAYERS)
+    obj_threshold = pick_obj_threshold(model, clips[0], device)
+    kwargs = dict(labels=LABELS_MOT17, obj_threshold=obj_threshold,
+                  nms_threshold=NMS_THRESHOLD, net_size=(NET, NET),
+                  device=device)
+    torch.backends.cudnn.deterministic = True    # both runs: same netouts
+    try:
+        frames = streamed_windows(JointPredictor(model, YOLOV2_ANCHORS,
+                                                 **kwargs), clips)
+        launches = cuda_nms.nms_scores.launches
+        sort_frames = []
+        sort_pred = JointPredictor(model, YOLOV2_ANCHORS, nms_impl='sort',
+                                   **kwargs)
+        for clip in clips:
+            sort_frames.extend(sort_pred.predict_window(clip[0]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if sort_frames != frames:
+        raise AssertionError("deep head: impl='kernel' and 'sort' "
+                             'disagree')
+    (c, h), (cs, hs) = sort_pred._state
+    if cs.shape != (DEEP_LAYERS - 1, 1, NET // 32, NET // 32,
+                    model.convlstm_features):
+        raise AssertionError(f'deep head state {tuple(cs.shape)}')
+    rates, profiles = {}, {}
+    for layers, m in ((1, joint_model(device)), (DEEP_LAYERS, model)):
+        pred = JointPredictor(m, YOLOV2_ANCHORS, **kwargs)
+        key = f'layers{layers}_b1_float32'
+        median = put_rate(rates, f'fps_{key}', fps(pred, clips[0], 10,
+                                                   False))
+        profiles[key] = breakdown(device_times(
+            lambda p=pred: p.predict_window(clips[0][0]), 2, m),
+            1e3 * T / median)
+    return {'phase': 'deep', 'convlstm_layers': DEEP_LAYERS,
+            'card_vs_cpu': parity, 'net': NET, 'T': T,
+            'classes': NUM_CLASSES, 'convlstm_features': 512,
+            'width_div': 1, 'obj_threshold': obj_threshold,
+            'predict_window_calls': len(clips), 'nms_launches': launches,
+            'kernel_equals_sort': True, **check_results(frames,
+                                                       obj_threshold),
+            **rates, 'profiles': profiles, 'card': smi}
+
+
+def as_served(frames_u8: np.ndarray, device) -> np.ndarray:
+    """uint8 frames normalised as the served program normalises them, /255
+    on the device (on the card a multiply by the reciprocal, which can
+    differ from the host's division by an ulp), back on the host: the
+    same float frames for JointPredictor."""
+    return (torch.from_numpy(frames_u8).to(device).float()
+            / 255.0).cpu().numpy()
+
+
+def same_served(got: list, want: list) -> float:
+    """Per call, clip and frame: the same labels and track ids in the same
+    order, boxes and scores within SERVED_TOL; returns the largest
+    difference. Raises otherwise."""
+    worst = 0.0
+    for i, (call_got, call_want) in enumerate(zip(got, want, strict=True)):
+        for clip_got, clip_want in zip(call_got, call_want, strict=True):
+            for f_got, f_want in zip(clip_got, clip_want, strict=True):
+                if ([(d['label'], d['track_id']) for d in f_got]
+                        != [(d['label'], d['track_id']) for d in f_want]):
+                    raise AssertionError(
+                        f'served labels or ids differ in call {i}: '
+                        f'{f_got[:4]} against {f_want[:4]}')
+                for a, b in zip(f_got, f_want):
+                    worst = max(worst, abs(a['score'] - b['score']),
+                                *(abs(x - y) for x, y in zip(a['box'],
+                                                             b['box'])))
+    if worst > SERVED_TOL:
+        raise AssertionError(f'served boxes or scores differ by {worst}')
+    return worst
+
+
+def served_calls(served, reqs) -> list:
+    """Three streamed calls of the served program; kernel 1 launches once
+    per call."""
+    served.reset_state()
+    cuda_nms.nms_scores.launches = 0
+    out = []
+    for i, clips in enumerate(reqs):
+        out.append(served.predict_window(clips))
+        if cuda_nms.nms_scores.launches != i + 1:
+            raise AssertionError('nms_scores did not launch once per '
+                                 'served call')
+    return out
+
+
+def reload_elsewhere(art: bytes, reqs, tmp: str, device) -> list:
+    """The artifact served by a fresh interpreter that imports only
+    serving.py (never the port's models), on `device`."""
+    path = save_artifact(art, str(Path(tmp) / 'joint.ottserve'))
+    np.save(Path(tmp) / 'frames.npy', np.stack(reqs))
+    code = (
+        'import json, sys\n'
+        'import numpy as np, torch\n'
+        'torch.backends.cuda.matmul.allow_tf32 = False\n'
+        'torch.backends.cudnn.allow_tf32 = False\n'
+        'torch.backends.cudnn.deterministic = True\n'
+        'from object_tracking_tpu_torch.serving import '
+        'ServedJointPredictor\n'
+        f'served = ServedJointPredictor.load({path!r}, '
+        f'device={str(device)!r})\n'
+        f'out = [served.predict_window(x) for x in np.load('
+        f'{str(Path(tmp) / "frames.npy")!r})]\n'
+        'assert "object_tracking_tpu_torch.models" not in sys.modules\n'
+        'print(json.dumps(out))\n')
+    run = subprocess.run([sys.executable, '-c', code],
+                         cwd=str(Path(__file__).resolve().parent),
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f'reload failed: {run.stderr[-2000:]}')
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def serve_phase(device, smi: str, weights: dict) -> dict:
+    """The train phase's weights exported (torch.export, kernel 1 as the
+    custom op) at B=1 and B=8 and served: three streamed calls each,
+    against JointPredictor on the same weights and frames; the B=1
+    artifact reloaded in a process without the models; a deep-head
+    artifact's 4-leaf state; frames/s served and through JointPredictor."""
+    model = joint_model(device)
+    model.load_state_dict(weights)
+    reqs = {batch: [train_batch(60 + 10 * batch + i, batch)['images_u8']
+                    for i in range(3)] for batch in (1, 8)}
+    obj_threshold = pick_obj_threshold(model, as_served(reqs[8][0], device),
+                                       device)
+    kwargs = dict(obj_threshold=obj_threshold, nms_threshold=NMS_THRESHOLD)
+    out = {'phase': 'serve', 'net': NET, 'T': T, 'classes': NUM_CLASSES,
+           'convlstm_features': 512, 'width_div': 1,
+           'weights': 'the train phase, 30 steps',
+           'obj_threshold': obj_threshold, 'tolerance': SERVED_TOL,
+           'card': smi}
+    launches, rates = {}, {}
+    torch.backends.cudnn.deterministic = True    # served and eager alike
+    try:
+        for batch in (1, 8):
+            art, export_s = timed(lambda b=batch: export_joint(
+                model, YOLOV2_ANCHORS, LABELS_MOT17, batch=b, window=T,
+                net_size=(NET, NET), **kwargs))
+            served, load_s = timed(lambda a=art: ServedJointPredictor(
+                a, device=device))
+            graph = [n.target for n in served.exported.graph.nodes]
+            if (graph.count(torch.ops.ott_torch.nms_scores.default) != 1
+                    or served.exported.graph_signature.buffers_to_mutate):
+                raise AssertionError('the served graph does not call the '
+                                     'op once, or writes a buffer')
+            got = served_calls(served, reqs[batch])
+            launches[f'served_b{batch}'] = cuda_nms.nms_scores.launches
+            pred = JointPredictor(model, YOLOV2_ANCHORS, LABELS_MOT17,
+                                  net_size=(NET, NET), device=device,
+                                  **kwargs)
+            want = [pred.predict_batch(as_served(c, device))
+                    for c in reqs[batch]]
+            entry = {'export_s': export_s / 1e3, 'load_s': load_s / 1e3,
+                     'artifact_mb': len(art) / 1e6,
+                     'graph_nodes': len(graph),
+                     'max_abs_diff_vs_joint_predictor': same_served(got,
+                                                                    want),
+                     **check_results([f for call in got for clip in call
+                                      for f in clip], obj_threshold)}
+            if batch == 1:
+                with tempfile.TemporaryDirectory() as tmp:
+                    again = reload_elsewhere(art, reqs[1], tmp, device)
+                entry['reload_without_models_max_abs_diff'] = same_served(
+                    again, got)
+            put_rate(rates, f'fps_served_b{batch}_float32', rate(
+                lambda s=served, c=reqs[batch][0]: s.predict_window(c),
+                batch * T, 5 if batch > 1 else 10))
+            put_rate(rates, f'fps_joint_predictor_b{batch}_float32', rate(
+                lambda c=as_served(reqs[batch][0], device):
+                pred.predict_batch(c), batch * T, 5 if batch > 1 else 10))
+            out[f'b{batch}'] = entry
+            del art, served, pred
+            gc.collect()
+        out['deep_head'] = served_deep_head(device)
+        launches['served_deep_head'] = out['deep_head']['nms_launches']
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {**out, **rates, 'nms_launches': launches}
+
+
+def served_deep_head(device) -> dict:
+    """A deep head (convlstm_layers=2) at the reduced cut (width_div=8,
+    128²) exported on the card: its 4-leaf state streams and resets as
+    tests/test_serving.py's deep case does, and its calls equal
+    JointPredictor's."""
+    net = 128
+    torch.manual_seed(0)
+    model = MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
+                               convlstm_features=64, width_div=8,
+                               convlstm_layers=DEEP_LAYERS).to(device).eval()
+    frames = train_batch(77, 1, net=net, objects=4)['images_u8']
+    obj_threshold = pick_obj_threshold(model, as_served(frames, device),
+                                       device)
+    kwargs = dict(obj_threshold=obj_threshold, nms_threshold=NMS_THRESHOLD)
+    served = ServedJointPredictor(export_joint(
+        model, YOLOV2_ANCHORS, LABELS_MOT17, batch=1, window=T,
+        net_size=(net, net), **kwargs), device=device)
+    leaves = [leaf['shape'] for leaf in served.meta['state_leaves']]
+    got = served_calls(served, [frames] * 3)
+    launches = cuda_nms.nms_scores.launches
+    served.reset_state()
+    again = served.predict_window(frames)
+    if len(leaves) != 4 or repr(again) != repr(got[0]):
+        raise AssertionError(f'deep-head state round trip: {leaves}')
+    pred = JointPredictor(model, YOLOV2_ANCHORS, LABELS_MOT17,
+                          net_size=(net, net), device=device, **kwargs)
+    want = [pred.predict_batch(as_served(frames, device))
+            for _ in range(3)]
+    return {'net': net, 'width_div': 8, 'convlstm_layers': DEEP_LAYERS,
+            'state_leaves': leaves, 'nms_launches': launches,
+            'reset_equals_first_call': True,
+            'max_abs_diff_vs_joint_predictor': same_served(got, want)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -1601,18 +1877,24 @@ def main() -> int:
     emit(golden)
     dn = decode_nms_phase(device, netout, obj)
     emit({'phase': 'decode_nms', **dn, 'card': smi})
-    train = train_phase(device, smi)
+    train, trained = train_phase(device, smi)
     emit(train)
     tracker, tracker_launches = tracker_phase(device, smi)
     emit(tracker)
     emit(detector_train_phase(device, smi))
+    deep = deep_phase(device, smi)
+    emit(deep)
+    served = serve_phase(device, smi, trained)
+    emit(served)
 
     nms_launches = {'joint_path': path['nms_launches'],
                     'detector_path': detector['nms_launches'],
                     'golden_detectors': golden['nms_launches'],
                     'train_to_serve': train['serve']['nms_launches'],
                     'tracker_precompute': tracker_launches['precompute'],
-                    'tracker_augment': tracker_launches['augment']}
+                    'tracker_augment': tracker_launches['augment'],
+                    'deep_head_predict': deep['nms_launches'],
+                    **served['nms_launches']}
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']
@@ -1622,6 +1904,7 @@ def main() -> int:
         'route': 'cuda',
         'source': 'object_tracking_tpu_torch/ops/cuda/csrc/nms_scores.cu',
         'replaces': 'object_tracking_tpu/ops/pallas/nms_pallas.py:83',
+        'custom_op': 'ott_torch::nms_scores',
         'shapes': {'boxes': [32, 128, 4], 'scores': [32, 128, NUM_CLASSES]},
         'launches': sum(nms_launches.values()),
         'launches_by_path': nms_launches,

@@ -2,18 +2,23 @@
 
 The port keeps its own copy of what it reads from the JAX package's
 `object_tracking_tpu/config.py` (anchors, the track gate, the COCO and
-MOT17 label sets, and the `DetectorConfig`, `LossConfig`, `TrackerConfig`,
-`JointConfig` and `TrainConfig` fields the port uses), so that importing it
-never imports the
-JAX package. `Config` holds the five (`TrackerConfig` is the
-single-object pipeline's); the mesh section waits for the parallel paths
-(ROADMAP.md queue 1, item 16).
+MOT17 label sets, the `DetectorConfig`, `LossConfig`, `TrackerConfig`,
+`JointConfig`, `TrainConfig` and `MeshConfig` fields, and config loading),
+so that importing it never imports the JAX package. `Config` holds the
+six sections and reads and writes both JSON layouts: the new one
+(`Config.to_json` / `from_dict`) and the reference's legacy config.json
+(`from_legacy_json`); `load_config` tells them apart. The parallel
+options (the mesh, `time_shards`, `moe_experts`, `pp_layers`) are read
+and written here; the trainer refuses them until the parallel paths are
+ported (ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # Anchor priors (grid-cell units) — YOLOv2 COCO anchors.
 YOLOV2_ANCHORS: Tuple[float, ...] = (
@@ -127,12 +132,17 @@ class JointConfig:
     # Recompute the per-frame detector in backward (activation memory for
     # FLOPs, so that sequence_length can grow).
     remat: bool = False
-    # Options of the JAX model that the port does not have yet; the
-    # trainer raises NotImplementedError when one is set.
+    # Options of the JAX model that the port does not have yet (the MoE
+    # head, time sharding, pipeline-parallel stacked layers); the trainer
+    # raises NotImplementedError when one is set.
     moe_experts: int = 0
+    moe_hidden: int = 256
     moe_aux_weight: float = 0.01
     time_shards: int = 1
+    # Total ConvLSTM depth of the tracking head (layer 0 projects the
+    # detector features; layers 1..L-1 are homogeneous F→F).
     convlstm_layers: int = 1
+    pp_layers: bool = False
 
 
 @dataclass
@@ -179,9 +189,93 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Device-mesh parallelism fields of the JAX package, read and written
+    so that one config file serves both packages; `distributed` (multi-
+    host) waits for the parallel paths (ROADMAP.md queue 1, item 16)."""
+    data_axis: str = 'data'
+    model_axis: str = 'model'
+    # -1 means "all remaining devices"
+    data_parallel: int = -1
+    model_parallel: int = 1
+    distributed: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: int = -1
+    process_id: int = -1
+
+
+@dataclass
 class Config:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     joint: JointConfig = field(default_factory=JointConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> 'Config':
+        """The new layout: one dict per section, keyed by field name
+        (unknown keys are ignored, lists become tuples)."""
+        def build(dc_cls, sub):
+            kwargs = {}
+            for f in dataclasses.fields(dc_cls):
+                if f.name in sub:
+                    v = sub[f.name]
+                    kwargs[f.name] = tuple(v) if isinstance(v, list) else v
+            return dc_cls(**kwargs)
+
+        return cls(**{f.name: build(f.default_factory, d.get(f.name, {}))
+                      for f in dataclasses.fields(cls)})
+
+    @classmethod
+    def from_legacy_json(cls, d: Dict[str, Any]) -> 'Config':
+        """The reference's config.json layout ('model_detector',
+        'model_tracker', 'train' and 'val' blocks)."""
+        cfg = cls()
+        md = d.get('model_detector', {})
+        if 'name' in md:
+            # the reference dispatches on this name: 'YOLO' → darknet,
+            # 'FasterRCNN' → VGG16
+            cfg.detector.backend = (
+                'vgg16' if md['name'] == 'FasterRCNN' else 'yolo')
+        if 'nms' in md:
+            cfg.detector.nms_threshold = float(md['nms'])
+        if 'thresh' in md:
+            cfg.detector.obj_threshold = float(md['thresh'])
+        if 'weights_file' in md:
+            cfg.detector.weights_path = md['weights_file']
+        if 'config_file' in md:
+            cfg.detector.cfg_path = md['config_file']
+        mt = d.get('model_tracker', {})
+        for key in ('name', 'lstm_units', 'sequence_length', 'heatmap_size'):
+            if key in mt:
+                setattr(cfg.tracker, key, mt[key])
+        tr = d.get('train', {})
+        for key in ('train_image_folder', 'train_annot_folder', 'batch_size',
+                    'max_epochs', 'tensorboard_dir', 'saved_model_dir'):
+            if key in tr:
+                setattr(cfg.train, key, tr[key])
+        if 'pool' in tr:
+            cfg.tracker.pool = tr['pool']
+        if 'classes' in tr:
+            cfg.train.classes = tuple(tr['classes'])
+        if 'debug' in tr:
+            cfg.train.debug = bool(tr['debug'])
+        va = d.get('val', {})
+        for key in ('val_image_folder', 'val_annot_folder'):
+            if key in va:
+                setattr(cfg.train, key, va[key])
+        return cfg
+
+
+def load_config(path: str) -> Config:
+    """A config JSON file in either layout."""
+    with open(path) as f:
+        d = json.load(f)
+    if 'model_detector' in d or 'model_tracker' in d:
+        return Config.from_legacy_json(d)
+    return Config.from_dict(d)

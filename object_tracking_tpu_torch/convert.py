@@ -11,6 +11,9 @@ arrays.
 - `tconv_lstm/recurrent_kernel` (kh, kw, F, 4F) → (4F, F, kh, kw), the
   same transpose, keeping the gate order (i, f, g, o) along the output
   channel;
+- the deep head's `tconv_stack/{input_kernel, recurrent_kernel}`
+  (L, kh, kw, F, 4F) → (L, 4F, F, kh, kw), the same transpose per layer
+  of the leading L axis, and `tconv_stack/input_bias` (L, 4F) as it is;
 - Dense `kernel` (in, out) → `weight` (out, in);
 - `bias` → `bias`;
 - BatchNorm `scale` / `bias` and batch_stats `mean` / `var` → `weight` /
@@ -43,7 +46,9 @@ import numpy as np
 import torch
 
 _PARAM_LEAVES = {'kernel': 'weight', 'recurrent_kernel': 'recurrent_kernel',
+                 'input_kernel': 'input_kernel', 'input_bias': 'input_bias',
                  'bias': 'bias', 'scale': 'weight'}
+_STACKED_KERNELS = ('input_kernel', 'recurrent_kernel')
 _STAT_LEAVES = {'mean': 'running_mean', 'var': 'running_var'}
 _NORM_KEYS = ('weight', 'bias', 'running_mean', 'running_var')
 
@@ -55,10 +60,13 @@ _HIDDEN_GATES = ('hi', 'hf', 'hg', 'ho')
 def _tensor(path: Tuple[str, ...], leaf: str, value: np.ndarray):
     if leaf == 'kernel' and value.ndim == 2:
         value = value.T                                 # Dense (in, out)
-    elif leaf in ('kernel', 'recurrent_kernel'):
+    elif leaf in _STACKED_KERNELS and value.ndim == 5:
+        value = value.transpose(0, 4, 3, 1, 2)         # L,HWIO → L,OIHW
+    elif leaf in ('kernel',) + _STACKED_KERNELS:
         if value.ndim != 4:
-            raise ValueError(f'{"/".join(path)}: expected a 4-d conv or 2-d '
-                             f'dense kernel, got shape {value.shape}')
+            raise ValueError(f'{"/".join(path)}: expected a 4-d conv, a '
+                             f'5-d stacked conv or a 2-d dense kernel, got '
+                             f'shape {value.shape}')
         value = value.transpose(3, 2, 0, 1)            # HWIO → OIHW
     return torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
 
@@ -139,7 +147,7 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
              if k.endswith('.running_mean')}
     tree: Dict[str, Any] = {'params': {}, 'batch_stats': {}}
     for key, value in state.items():
-        module, leaf = key.rsplit('.', 1)
+        module, _, leaf = key.rpartition('.')
         value = value.detach().cpu().float().numpy()
         if module in norms:
             collection, name = {
@@ -150,12 +158,15 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             collection, name = 'params', ('kernel' if leaf == 'weight'
                                           else leaf)
             value = value.transpose(2, 3, 1, 0)            # OIHW → HWIO
-        elif leaf == 'bias':
-            collection, name = 'params', 'bias'
+        elif leaf in _STACKED_KERNELS and value.ndim == 5:
+            collection, name = 'params', leaf
+            value = value.transpose(0, 3, 4, 2, 1)      # L,OIHW → L,HWIO
+        elif leaf in ('bias', 'input_bias'):
+            collection, name = 'params', leaf
         else:
             raise KeyError(f'no flax name for {key} {tuple(value.shape)}')
         node = tree[collection]
-        for part in module.split('.'):
+        for part in module.split('.') if module else ():
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(value)
     if not tree['batch_stats']:

@@ -1,6 +1,7 @@
 """Data layer: annotation parsing, sequence windows, augmentation, the
-batch generators of the detector, joint and single-object pipelines, and
-the synthetic dataset.
+batch generators of the detector, joint and single-object pipelines, the
+synthetic dataset, and the MOT17 / VisualTB → VOC converters
+(`data/converters.py`).
 
 Host side stays numpy (+ cv2 for image files, imported at use); the
 augmentation and target encoding that feed the loss are tensor ops that

@@ -26,6 +26,15 @@ from object_tracking_tpu_torch.ops.matching import (
     TrackManager, assign_tracks, init_track_state)
 
 
+def float_state(state):
+    """The ConvLSTM state tree ((c, h), or a deep head's ((c, h),
+    (cs, hs))) with every leaf in float32: the carry between calls,
+    whatever the model's compute dtype."""
+    if isinstance(state, torch.Tensor):
+        return state.float()
+    return tuple(float_state(s) for s in state)
+
+
 def resolve_device(device) -> torch.device:
     """torch.device(device), refusing a CUDA device this process lacks:
     the port never falls back to the CPU on its own."""
@@ -79,7 +88,7 @@ class JointPredictor:
         self.nms_impl = nms_impl
         self.tracks = TrackManager(iou_threshold=iou_threshold,
                                    max_age=max_age)
-        self._state = None                  # carried ConvLSTM (c, h)
+        self._state = None                  # carried ConvLSTM state
         self._track_state = None            # carried TrackState
         self._bstate = None
         self._btrack_state = None
@@ -103,8 +112,7 @@ class JointPredictor:
                     iou_threshold=self.iou_threshold, max_age=self.max_age)
                 per_frame.append(ids_t)
             ids = torch.stack(per_frame, dim=1).cpu().numpy()
-        # f32 carry whatever the model's compute dtype
-        state = tuple(s.float() for s in out['state'])
+        state = float_state(out['state'])
         dets = tuple(a.cpu().numpy() for a in (boxes, labels, scores, valid))
         return dets, ids, state, track_state
 
@@ -202,7 +210,8 @@ class JointPredictor:
                 'Hungarian path is per-stream)')
         x = np.asarray(clips, np.float32)
         b = x.shape[0]
-        if self._bstate is not None and self._bstate[0].shape[0] != b:
+        if (self._btrack_state is not None
+                and self._btrack_state.next_id.shape[0] != b):
             self.reset_batch_state()
         if self._bstate is None:
             self._bstate = self._zero_state(b)

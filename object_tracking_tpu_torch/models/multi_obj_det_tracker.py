@@ -6,7 +6,9 @@ Port of `object_tracking_tpu/models/multi_obj_det_tracker.py`:
   into the batch (B·T);
 - detection head = the per-frame netout reshaped to (B, T, GH, GW, A, 5+C);
 - tracking head = concat(flat netout, conv_feat) along channels →
-  FusedConvLSTM over time → 1x1 conv `tconv_2` to A·(5+C).
+  FusedConvLSTM over time (`tconv_lstm`) → with `convlstm_layers` L > 1,
+  L−1 homogeneous F→F layers (`tconv_stack`, a StackedConvLSTM) → 1x1
+  conv `tconv_2` to A·(5+C).
 
 The flat netout's channel is a·(5+C)+k in both frameworks, so the NCHW
 concat of the head conv's output with conv_feat is the JAX concat.
@@ -16,7 +18,8 @@ reentrant), as the JAX model wraps it in `nn.remat`: its activations are
 recomputed in backward instead of kept. The recomputation writes no
 BatchNorm running statistic, so a training step updates them once.
 Images (B, T, H, W, 3), outputs and the (c, h) state keep the JAX layouts;
-the state is (B, GH, GW, F) each.
+the state is (c, h), each (B, GH, GW, F), and for a deep head
+((c, h), (cs, hs)) with cs and hs (L−1, B, GH, GW, F), as in JAX.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from object_tracking_tpu_torch.models.convlstm import FusedConvLSTM
+from object_tracking_tpu_torch.models.convlstm import (
+    FusedConvLSTM, StackedConvLSTM)
 from object_tracking_tpu_torch.models.darknet19 import Darknet19, conv
 
 
@@ -46,12 +50,12 @@ def _in_eval_mode(module: nn.Module):
 
 
 class MultiObjDetTracker(nn.Module):
-    """Joint detect+track model with a single ConvLSTM layer and the
+    """Joint detect+track model: `convlstm_layers` ConvLSTM layers and the
     dense 1x1 track head.
 
-    `moe_experts`, `time_shards > 1` and `convlstm_layers > 1` are options
-    of the JAX model that this port does not have yet; they raise
-    NotImplementedError naming their roadmap item.
+    `moe_experts` and `time_shards > 1` are options of the JAX model that
+    this port does not have yet; they raise NotImplementedError naming
+    their roadmap item.
     """
 
     def __init__(self, num_classes: int = 12, num_anchors: int = 5,
@@ -65,28 +69,34 @@ class MultiObjDetTracker(nn.Module):
             later.append('moe_experts (queue 1, item 16)')
         if time_shards > 1:
             later.append('time_shards > 1 (queue 1, item 16)')
-        if convlstm_layers > 1:
-            later.append('convlstm_layers > 1 (StackedConvLSTM, queue 1, '
-                         'item 5)')
         if later:
             raise NotImplementedError(
                 'not ported yet, see ROADMAP.md: ' + ', '.join(later))
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.convlstm_features = convlstm_features
+        self.convlstm_layers = convlstm_layers
         self.dtype = dtype
         self.remat = remat
         self.detector = Darknet19(num_classes, num_anchors, dtype, width_div)
         out_ch = num_anchors * (5 + num_classes)
         self.tconv_lstm = FusedConvLSTM(out_ch + self.detector.feat_channels,
                                         convlstm_features, 3, dtype)
+        if convlstm_layers > 1:
+            self.tconv_stack = StackedConvLSTM(
+                convlstm_features, convlstm_layers - 1, 3, dtype)
         self.tconv_2 = nn.Conv2d(convlstm_features, out_ch, 1)
 
     def zero_state(self, batch: int, grid_h: int, grid_w: int):
-        """Initial streaming state (c, h), each (B, GH, GW, F) float32."""
-        z = torch.zeros((batch, grid_h, grid_w, self.convlstm_features),
-                        dtype=torch.float32,
-                        device=self.tconv_2.weight.device)
+        """Initial streaming state (c, h), each (B, GH, GW, F) float32;
+        for a deep head ((c, h), (cs, hs)), cs and hs (L−1, B, GH, GW, F)."""
+        shape = (batch, grid_h, grid_w, self.convlstm_features)
+        device = self.tconv_2.weight.device
+        z = torch.zeros(shape, dtype=torch.float32, device=device)
+        if self.convlstm_layers > 1:
+            zs = torch.zeros((self.convlstm_layers - 1,) + shape,
+                             dtype=torch.float32, device=device)
+            return ((z, z), (zs, zs))
         return (z, z)
 
     def forward(self, images: torch.Tensor, train: bool = False,
@@ -94,8 +104,8 @@ class MultiObjDetTracker(nn.Module):
                 return_state: bool = False):
         """images (B, T, H, W, 3) in [0, 1] →
         {'detect': (B, T, GH, GW, A, 5+C), 'track': same, float32
-         [, 'state': final (c, h), each (B, GH, GW, F) in the compute
-         dtype, when return_state]}.
+         [, 'state': the final state in `zero_state`'s form, in the
+         compute dtype, when return_state]}.
 
         `train=True` normalises with batch statistics over all B·T frames;
         in `train()` mode it also updates the running statistics, in
@@ -116,15 +126,26 @@ class MultiObjDetTracker(nn.Module):
 
         z = torch.cat([head.to(self.dtype), feat], dim=1)
         z = z.reshape(b, t, z.shape[1], gh, gw)
-        state0 = None
+        deep = self.convlstm_layers > 1
+        state0 = stack0 = None
         if initial_state is not None:
-            state0 = tuple(s.permute(0, 3, 1, 2) for s in initial_state)
+            first = initial_state[0] if deep else initial_state
+            state0 = tuple(s.permute(0, 3, 1, 2) for s in first)
+            if deep:
+                stack0 = tuple(s.permute(0, 1, 4, 2, 3)
+                               for s in initial_state[1])
         z, state = self.tconv_lstm(z, initial_state=state0,
                                    return_state=True)
+        state = tuple(s.permute(0, 2, 3, 1) for s in state)
+        if deep:
+            z, stacked = self.tconv_stack(z, initial_state=stack0,
+                                          return_state=True)
+            state = (state, tuple(s.permute(0, 1, 3, 4, 2)
+                                  for s in stacked))
         track = conv(z.reshape(b * t, self.convlstm_features, gh, gw),
                      self.tconv_2)
         track = track.float().permute(0, 2, 3, 1).reshape(b, t, gh, gw, a, k)
         out = {'track': track, 'detect': detect}
         if return_state:
-            out['state'] = tuple(s.permute(0, 2, 3, 1) for s in state)
+            out['state'] = state
         return out

@@ -11,9 +11,11 @@ the card, and a walk pass runs one warp per (frame, class) as a sorted
 scan.
 
 `nms_scores` takes F frames at once, so a predict call makes ONE launch
-(two kernel passes) for all of its B·T frames. On a CPU tensor it runs
-`nms_scores_plain`, the same walk in PyTorch; on a CUDA tensor it launches
-the kernel or raises. `launch_plan` chooses every size the launch uses, in
+(two kernel passes) for all of its B·T frames. It goes through the custom
+op `torch.ops.ott_torch.nms_scores` (`nms_scores_op`), which a traced
+program records as one call: on a CPU tensor it runs `nms_scores_plain`,
+the same walk in PyTorch; on a CUDA tensor it launches the kernel or
+raises. `launch_plan` chooses every size the launch uses, in
 plain Python that the CPU tests reach; the launcher derives each pass's
 shared memory from the plan's choices and refuses a plan that does not
 fit.
@@ -203,22 +205,10 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
         raise ValueError('nms_scores takes contiguous tensors')
 
 
-def nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
-               nms_threshold: float = 0.45) -> torch.Tensor:
-    """Per-class greedy NMS for F frames in one launch.
-
-    boxes (F, K, 4) center-format, scores (F, K, C) thresholded, both
-    float32 and contiguous → (F, K, C) with suppressed scores zeroed.
-    CPU tensors run `nms_scores_plain`; CUDA tensors launch the kernel's
-    two passes (and count one launch in `nms_scores.launches`) or raise;
-    K ≤ MAX_K on CUDA.
-    """
-    _check(boxes, scores)
-    if boxes.device.type == 'cpu':
-        return nms_scores_plain(boxes, scores, nms_threshold)
-    if boxes.device.type != 'cuda':
-        raise ValueError(f'nms_scores runs on cuda or cpu, not '
-                         f'{boxes.device}')
+def _launch(boxes: torch.Tensor, scores: torch.Tensor,
+            nms_threshold: float) -> torch.Tensor:
+    """One launch of the kernel's two passes on CUDA tensors, counted in
+    `nms_scores.launches`; raises on a failed build or launch."""
     f, k, c = scores.shape
     plan = launch_plan(f, k, c)
     out = torch.empty_like(scores)
@@ -237,6 +227,51 @@ def nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
                            f'cudaError {err}')
     nms_scores.launches += 1
     return out
+
+
+# The kernel as the custom op `ott_torch::nms_scores`, so that a traced
+# program (torch.export, `serving.py`) records one call of it: the CUDA
+# implementation launches the kernel, the CPU one runs the plain twin, and
+# the fake one gives tracing the output's shape. Registering builds
+# nothing; the kernel builds at its first launch.
+@torch.library.custom_op('ott_torch::nms_scores', mutates_args=(),
+                         device_types='cuda')
+def nms_scores_op(boxes: torch.Tensor, scores: torch.Tensor,
+                  nms_threshold: float) -> torch.Tensor:
+    _check(boxes, scores)
+    return _launch(boxes, scores, nms_threshold)
+
+
+@nms_scores_op.register_kernel('cpu')
+def _nms_scores_cpu(boxes: torch.Tensor, scores: torch.Tensor,
+                    nms_threshold: float) -> torch.Tensor:
+    _check(boxes, scores)
+    return nms_scores_plain(boxes, scores, nms_threshold)
+
+
+@nms_scores_op.register_fake
+def _nms_scores_fake(boxes: torch.Tensor, scores: torch.Tensor,
+                     nms_threshold: float) -> torch.Tensor:
+    _check(boxes, scores)
+    return torch.empty_like(scores)
+
+
+def nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
+               nms_threshold: float = 0.45) -> torch.Tensor:
+    """Per-class greedy NMS for F frames in one launch.
+
+    boxes (F, K, 4) center-format, scores (F, K, C) thresholded, both
+    float32 and contiguous → (F, K, C) with suppressed scores zeroed.
+    Calls the custom op `torch.ops.ott_torch.nms_scores`: CPU tensors run
+    `nms_scores_plain`; CUDA tensors launch the kernel's two passes (and
+    count one launch in `nms_scores.launches`) or raise; K ≤ MAX_K on
+    CUDA.
+    """
+    if boxes.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'nms_scores runs on cuda or cpu, not '
+                         f'{boxes.device}')
+    return torch.ops.ott_torch.nms_scores(boxes, scores,
+                                          float(nms_threshold))
 
 
 nms_scores.launches = 0

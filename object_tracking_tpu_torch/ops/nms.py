@@ -18,7 +18,7 @@ import torch
 from object_tracking_tpu_torch.ops.boxes import pairwise_iou_center
 from object_tracking_tpu_torch.ops.cuda.nms import greedy_walk, nms_scores
 
-IMPLS = ('auto', 'kernel', 'sort', 'matmul')
+IMPLS = ('auto', 'kernel', 'op', 'sort', 'matmul')
 
 
 def _nms_one_class(scores: torch.Tensor, iou: torch.Tensor,
@@ -74,12 +74,16 @@ def greedy_nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
       scores: ([F,] N, C) per-class scores, already thresholded.
       nms_threshold: IoU at or above which a box suppresses lower-ranked.
       top_k: candidate cap; 0 / >= N means exact full-N NMS.
-      impl: 'kernel' (the CUDA kernel, CUDA tensors only), 'sort' (per-class
-        rank walk), 'matmul' (all classes per round by argmax), or 'auto'
-        ('kernel' on a CUDA tensor, 'sort' on a CPU tensor). Identical
-        results up to the IoU formula: 'kernel' uses the TPU kernel's
-        inter / max(union, 1e-12), the others ops/boxes.py's
-        inter / (union + 1e-10).
+      impl: 'kernel' (the CUDA kernel, CUDA tensors only), 'op' (the
+        kernel's custom op `torch.ops.ott_torch.nms_scores` on either
+        device: the kernel on a CUDA tensor, its plain twin on a CPU one;
+        the exported serving program uses it, so that one graph serves on
+        both), 'sort' (per-class rank walk), 'matmul' (all classes per
+        round by argmax), or 'auto' ('kernel' on a CUDA tensor, 'sort' on
+        a CPU tensor). 'kernel' and 'op' on a CUDA tensor are the same
+        call. Identical results up to the IoU formula: 'kernel' and 'op'
+        use the TPU kernel's inter / max(union, 1e-12), the others
+        ops/boxes.py's inter / (union + 1e-10).
 
     Returns:
       (kept_boxes ([F,] K, 4), kept_scores ([F,] K, C)), K = min(top_k, N).
@@ -97,7 +101,7 @@ def greedy_nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
     n = boxes.shape[1]
     if top_k and top_k < n:
         boxes, scores = _top_k(boxes, scores, top_k)
-    if impl == 'kernel':
+    if impl in ('kernel', 'op'):
         new_scores = nms_scores(boxes.contiguous(), scores.contiguous(),
                                 nms_threshold)
     else:

@@ -1,14 +1,20 @@
-"""Training flows.
+"""Training, evaluation, serving-export, tracking and conversion flows,
+and the command line.
 
-Port of the three flows of `object_tracking_tpu/trainer.py`:
+Port of the flows of `object_tracking_tpu/trainer.py`:
 `single_object_tracking` (TinyTracker over a frozen prior source),
-`simult_multi_obj_detection_tracking` (the joint detect+track model) and
+`simult_multi_obj_detection_tracking` (the joint detect+track model),
 `keras_yolo_obj_detection` (predict over images, and standalone detector
-training). Each wires generators → steps → fit loop with the checkpoint /
-early-stop / plateau-LR / metric-logging stack, on one device ('cuda'
-unless the caller passes `device='cpu'`; a missing card raises).
-`synthetic=True` fabricates a small dataset first and trains on it. The
-command line waits for its item (ROADMAP.md queue 1, item 15).
+training), `evaluate_tracking` (CLEAR-MOT over the val split),
+`export_serving` (the serving artifact, `serving.py`), `track_video`
+(drawn frames and an optional video) and `convert_dataset` (MOT17 /
+VisualTB → VOC). The training flows wire generators → steps → fit loop
+with the checkpoint / early-stop / plateau-LR / metric-logging stack.
+Every flow runs on one device ('cuda' unless the caller passes
+`device='cpu'`; a missing card raises). `synthetic=True` fabricates a
+small dataset first. `main` is the command line:
+
+    python -m object_tracking_tpu_torch.trainer [--device cpu] <command>
 
 A model trained from scratch starts as flax starts the JAX one
 (`models.darknet19.init_like_flax`): torch's default conv init has a third
@@ -17,6 +23,8 @@ of lecun_normal's variance, which would make it another experiment.
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import tempfile
 from typing import Optional
@@ -69,10 +77,11 @@ def _synthetic_dirs(cfg, image_size, labels, frames=12, videos=2,
 
 def _not_ported(cfg, profile_dir=None, joint: bool = True) -> list:
     """The JAX flows' options that the port does not have yet: multi-host
-    runs for every flow; for the joint flow also its parallel and stacked
-    variants and profiling."""
+    runs for every flow; for the joint flows also their parallel variants
+    (time sharding, the MoE head, pipeline-parallel stacked layers) and
+    profiling."""
     later = []
-    if getattr(getattr(cfg, 'mesh', None), 'distributed', False):
+    if cfg.mesh.distributed:
         later.append('mesh.distributed (queue 1, item 16)')
     if not joint:
         return later
@@ -80,8 +89,8 @@ def _not_ported(cfg, profile_dir=None, joint: bool = True) -> list:
         later.append('joint.time_shards > 1 (queue 1, item 16)')
     if cfg.joint.moe_experts:
         later.append('joint.moe_experts (queue 1, item 16)')
-    if cfg.joint.convlstm_layers > 1:
-        later.append('joint.convlstm_layers > 1 (queue 1, item 5)')
+    if cfg.joint.pp_layers:
+        later.append('joint.pp_layers (queue 1, item 16)')
     if profile_dir:
         later.append('profile_dir (queue 1, item 16)')
     return later
@@ -234,6 +243,42 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
     return state
 
 
+def _joint_model(cfg, labels):
+    """The joint model of `cfg` for `labels`, on the CPU, initialised as
+    flax initialises the JAX one (seed cfg.train.seed)."""
+    from object_tracking_tpu_torch.models import MultiObjDetTracker
+    from object_tracking_tpu_torch.models.darknet19 import init_like_flax
+    return init_like_flax(MultiObjDetTracker(
+        num_classes=len(labels), num_anchors=cfg.detector.num_anchors,
+        convlstm_features=cfg.joint.convlstm_features,
+        width_div=cfg.detector.width_div,
+        dtype=getattr(torch, cfg.joint.compute_dtype),
+        remat=cfg.joint.remat,
+        convlstm_layers=cfg.joint.convlstm_layers), cfg.train.seed)
+
+
+def _restore_variables(model, checkpoint_dir: Optional[str],
+                       required: bool = False):
+    """Load the parameters and BatchNorm statistics of the latest
+    checkpoint under `checkpoint_dir` into `model`; returns its step, or
+    None when there is none (`required` then raises)."""
+    from object_tracking_tpu_torch.training import (
+        CheckpointManager, TrainState, make_optimizer)
+    if not checkpoint_dir:
+        return None
+    ckpts = CheckpointManager(checkpoint_dir)
+    _, at = ckpts.restore(TrainState.create(model, make_optimizer(1e-4)),
+                          variables_only=True)
+    ckpts.close()
+    if at:
+        print(f'restored checkpoint step {at}')
+    elif required:
+        raise FileNotFoundError(
+            f'no checkpoint under {checkpoint_dir} — refusing to export '
+            'random weights silently')
+    return at
+
+
 def _load_darknet_backbone(model, cfg, grid_h: int, grid_w: int) -> None:
     """Darknet .weights into the joint model's detector (every tensor of
     matching shape, and all BatchNorm statistics), then the head conv
@@ -265,8 +310,6 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     """
     from object_tracking_tpu_torch.data import (
         SequenceBatches, make_sequence_windows, parse_annotation_dir)
-    from object_tracking_tpu_torch.models import MultiObjDetTracker
-    from object_tracking_tpu_torch.models.darknet19 import init_like_flax
     from object_tracking_tpu_torch.training import (
         TrainState, fit, make_joint_eval_step, make_joint_eval_step_fused,
         make_joint_train_step, make_joint_train_step_fused, make_optimizer)
@@ -301,13 +344,7 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     val_gen = build(cfg.train.val_image_folder,
                     cfg.train.val_annot_folder, False)
 
-    model = MultiObjDetTracker(
-        num_classes=len(labels), num_anchors=cfg.detector.num_anchors,
-        convlstm_features=cfg.joint.convlstm_features,
-        width_div=cfg.detector.width_div,
-        dtype=getattr(torch, cfg.joint.compute_dtype),
-        remat=cfg.joint.remat)
-    init_like_flax(model, cfg.train.seed)
+    model = _joint_model(cfg, labels)
     if cfg.detector.weights_path:
         _load_darknet_backbone(model, cfg, gh, gw)
     model = model.to(device)
@@ -474,3 +511,343 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
     logger.close()
     ckpts.close()
     return state
+
+
+def _joint_predictor(cfg, labels, device, checkpoint_dir, **kwargs):
+    """JointPredictor over the joint model of `cfg`, with the latest
+    checkpoint under `checkpoint_dir` when there is one."""
+    from object_tracking_tpu_torch.inference import JointPredictor
+    _refuse_later(_not_ported(cfg))
+    device = resolve_device(device)
+    model = _joint_model(cfg, labels)
+    _restore_variables(model, checkpoint_dir)
+    size = cfg.detector.image_h
+    return JointPredictor(
+        model, cfg.detector.anchors, labels,
+        obj_threshold=cfg.detector.obj_threshold,
+        nms_threshold=cfg.detector.nms_threshold,
+        net_size=(size, size), device=device, **kwargs)
+
+
+def evaluate_tracking(cfg, *, synthetic: bool = False,
+                      checkpoint_dir: Optional[str] = None,
+                      window: Optional[int] = None,
+                      workdir: Optional[str] = None,
+                      device='cuda') -> dict:
+    """CLEAR-MOT (and the detection mAP) over the val split with the joint
+    model, restored from `checkpoint_dir` when it holds a checkpoint; the
+    Hungarian matcher, as the JAX flow evaluates. Prints and returns the
+    per-video and overall metrics."""
+    from object_tracking_tpu_torch.data import parse_annotation_dir
+    from object_tracking_tpu_torch.evaluation import (
+        evaluate_tracking_dataset)
+
+    labels = cfg.joint.labels
+    if synthetic:
+        labels = ('1', '2')
+        size = cfg.detector.image_h
+        cfg = _synthetic_dirs(cfg, (size, size), labels, workdir=workdir)
+    predictor = _joint_predictor(cfg, labels, device, checkpoint_dir,
+                                 matcher='hungarian')
+    anns, _ = parse_annotation_dir(cfg.train.val_annot_folder,
+                                   cfg.train.val_image_folder, labels)
+    results = evaluate_tracking_dataset(
+        predictor, anns, window=window or cfg.joint.sequence_length)
+    print(json.dumps(
+        {k: {m: round(float(v), 4) for m, v in r.items()}
+         for k, r in results.items()}, indent=2))
+    return results
+
+
+def export_serving(cfg, *, out_path: str,
+                   checkpoint_dir: Optional[str] = None,
+                   batch: int = 1, window: Optional[int] = None,
+                   device='cuda') -> str:
+    """Build the joint model (restoring the latest checkpoint under
+    `checkpoint_dir`; a directory that holds none raises
+    FileNotFoundError), export its clip program on `device` and write the
+    serving artifact to `out_path`."""
+    from object_tracking_tpu_torch.serving import export_joint, save_artifact
+
+    _refuse_later(_not_ported(cfg))
+    device = resolve_device(device)
+    labels = cfg.joint.labels
+    size = cfg.detector.image_h
+    t = window or cfg.joint.sequence_length
+    model = _joint_model(cfg, labels)
+    _restore_variables(model, checkpoint_dir, required=True)
+    art = export_joint(
+        model.to(device), cfg.detector.anchors, labels, batch=batch,
+        window=t, net_size=(size, size),
+        obj_threshold=cfg.detector.obj_threshold,
+        nms_threshold=cfg.detector.nms_threshold)
+    save_artifact(art, out_path)
+    print(f'wrote serving artifact {out_path} ({len(art) / 1e6:.1f} MB, '
+          f'traced on {device}, B={batch} T={t} {size}x{size})')
+    return out_path
+
+
+def convert_dataset(kind: str, src: str, out_dir: str, *,
+                    class_map_path: Optional[str] = None,
+                    validation_split: float = 0.25) -> int:
+    """MOT17 / VisualTB → per-frame PASCAL-VOC XML trees (train/val[/test]).
+
+    `class_map_path` (VisualTB only): JSON mapping sequence dir → class
+    name, either a bare map or a legacy config.json with a 'classes_map'
+    block.
+    """
+    from object_tracking_tpu_torch.data.converters import (
+        mot_to_voc, visualtb_to_voc)
+
+    if kind == 'mot':
+        subdirs = [os.path.join(src, d) for d in ('train', 'test')
+                   if os.path.isdir(os.path.join(src, d))]
+        n = mot_to_voc(subdirs or [src], out_dir,
+                       validation_split=validation_split)
+    elif kind == 'visualtb':
+        if not class_map_path:
+            raise ValueError('visualtb conversion needs --class-map '
+                             '(sequence → class JSON)')
+        with open(class_map_path) as f:
+            cm = json.load(f)
+        cm = cm.get('classes_map', cm)     # accept a legacy config.json
+        n = visualtb_to_voc(src, os.path.join(out_dir, 'train'),
+                            os.path.join(out_dir, 'val'), cm,
+                            validation_split=validation_split)
+    else:
+        raise ValueError(f'unknown converter kind {kind!r}')
+    print(f'wrote {n} annotation files under {out_dir}')
+    return n
+
+
+def track_video(cfg, *, frames_dir: str, out_dir: str,
+                checkpoint_dir: Optional[str] = None,
+                window: Optional[int] = None,
+                matcher: str = 'greedy',
+                out_video: Optional[str] = None,
+                fps: Optional[float] = None, device='cuda') -> list:
+    """Run the joint model over a directory of frames (or a video file,
+    decoded with cv2), drawing per-track coloured boxes with persistent
+    ids into `out_dir`; returns the per-frame detections. `out_video`
+    also assembles the drawn frames into one video file (container and
+    codec by extension, e.g. `.mp4` / `.avi`); `fps=None` takes a source
+    video's frame rate, else 25."""
+    predictor = _joint_predictor(cfg, cfg.joint.labels, device,
+                                 checkpoint_dir, matcher=matcher)
+    tmp = None
+    try:
+        if os.path.isfile(frames_dir):
+            import cv2
+            cap = cv2.VideoCapture(frames_dir)
+            if not cap.isOpened():
+                raise FileNotFoundError(frames_dir)
+            if fps is None:
+                src_fps = cap.get(cv2.CAP_PROP_FPS)
+                if src_fps and src_fps > 0:
+                    fps = float(src_fps)
+            tmp = tempfile.mkdtemp(prefix='ott_video_')
+            i = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                cv2.imwrite(os.path.join(tmp, f'{i:06d}.jpg'), frame)
+                i += 1
+            cap.release()
+            frames_dir = tmp
+        exts = ('.jpg', '.jpeg', '.png')
+        paths = sorted(
+            os.path.join(frames_dir, f) for f in os.listdir(frames_dir)
+            if f.lower().endswith(exts))
+        if not paths:
+            raise FileNotFoundError(f'no frames in {frames_dir}')
+        results = predictor.predict_video(
+            paths, window=window or cfg.joint.sequence_length,
+            draw_dir=out_dir)
+        n_tracks = len({d['track_id'] for dets in results for d in dets})
+        print(f'{len(paths)} frames → {out_dir} ({n_tracks} tracks)')
+        if out_video:
+            _write_video(out_dir, paths, out_video, fps or 25.0)
+            print(f'video → {out_video}')
+        return results
+    finally:
+        if tmp is not None:
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _write_video(drawn_dir: str, frame_paths, out_path: str,
+                 fps: float) -> None:
+    """Assemble the drawn frames (named after their sources in
+    `drawn_dir`) into one video file with cv2.VideoWriter."""
+    import cv2
+    first = cv2.imread(os.path.join(
+        drawn_dir, os.path.basename(frame_paths[0])))
+    if first is None:
+        raise FileNotFoundError(
+            f'no drawn frame for {frame_paths[0]} in {drawn_dir}')
+    h, w = first.shape[:2]
+    ext = os.path.splitext(out_path)[1].lower()
+    fourcc = cv2.VideoWriter_fourcc(*('MJPG' if ext == '.avi' else 'mp4v'))
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    writer = cv2.VideoWriter(out_path, fourcc, fps, (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f'cv2.VideoWriter could not open {out_path}')
+    skipped = 0
+    try:
+        for p in frame_paths:
+            img = cv2.imread(os.path.join(drawn_dir, os.path.basename(p)))
+            if img is None:
+                skipped += 1
+                continue
+            if img.shape[:2] != (h, w):
+                img = cv2.resize(img, (w, h))
+            writer.write(img)
+    finally:
+        writer.release()
+    if skipped:
+        import warnings
+        warnings.warn(
+            f'{skipped}/{len(frame_paths)} drawn frames missing from '
+            f'{drawn_dir}; the output video is shorter than the input',
+            stacklevel=2)
+
+
+def _load_cfg(args):
+    from object_tracking_tpu_torch.config import Config, load_config
+    cfg = load_config(args.config) if args.config else Config()
+    if getattr(args, 'epochs', None):
+        cfg.train.max_epochs = args.epochs
+    return cfg
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog='object_tracking_tpu_torch.trainer',
+        description='Detection and tracking trainer: the PyTorch port, on '
+        'one CUDA card (or the CPU with --device cpu).',
+        epilog='The JAX trainer keeps a persistent XLA compile cache '
+        '(OTT_COMPILE_CACHE); the port has no counterpart: it compiles '
+        'nothing ahead of time but its CUDA kernels, which build at first '
+        'use into build/kernels/ and are reused from there.')
+    p.add_argument('--config', help='config JSON (new or legacy layout)')
+    p.add_argument('--device', default='cuda',
+                   help="'cuda' (the default; without a card the flows "
+                   "raise) or 'cpu'")
+    sub = p.add_subparsers(dest='cmd', required=True)
+
+    ps = sub.add_parser('single', help='single-object tracking '
+                        '(TinyTracker / TinyHeatmapTracker)')
+    ps.add_argument('--synthetic', action='store_true')
+    ps.add_argument('--epochs', type=int)
+    ps.add_argument('--heatmap', action='store_true')
+
+    pj = sub.add_parser('joint', help='simultaneous multi-object '
+                        'detection + tracking')
+    pj.add_argument('--synthetic', action='store_true')
+    pj.add_argument('--epochs', type=int)
+    pj.add_argument('--image-size', type=int, default=None)
+    pj.add_argument('--profile-dir', help='not ported yet (ROADMAP.md '
+                    'queue 1, item 16): the flow refuses it')
+
+    pd = sub.add_parser('detect', help='standalone YOLOv2 detector')
+    pd.add_argument('--image', action='append', default=[])
+    pd.add_argument('--cfg', help='darknet .cfg to build the detector '
+                    'from (any yolov2/tiny/v3-family graph)')
+    pd.add_argument('--weights', help='darknet .weights to ingest')
+    pd.add_argument('--out-dir', default='.')
+    pd.add_argument('--train', action='store_true')
+    pd.add_argument('--synthetic', action='store_true')
+    pd.add_argument('--epochs', type=int)
+
+    pt = sub.add_parser('track', help='run the joint tracker over a '
+                        'frame directory, drawing per-track boxes')
+    pt.add_argument('--frames', required=True,
+                    help='directory of frames OR a video file (decoded '
+                    'with cv2)')
+    pt.add_argument('--out-dir', default='tracked')
+    pt.add_argument('--checkpoint-dir')
+    pt.add_argument('--window', type=int)
+    pt.add_argument('--matcher', choices=['greedy', 'hungarian'],
+                    default='greedy')
+    pt.add_argument('--out-video',
+                    help='also assemble the drawn frames into one video '
+                    'file (.mp4/.avi)')
+    pt.add_argument('--fps', type=float, default=None,
+                    help="frame rate for --out-video (default: the "
+                    "source video's rate, or 25 for frame dirs)")
+
+    pe = sub.add_parser('eval', help='CLEAR-MOT tracking evaluation')
+    pe.add_argument('--synthetic', action='store_true')
+    pe.add_argument('--checkpoint-dir')
+    pe.add_argument('--window', type=int)
+
+    px = sub.add_parser('export', help='export the joint clip program '
+                        '(trained weights baked in) to one self-contained '
+                        'serving artifact (torch.export), traced on '
+                        '--device')
+    px.add_argument('--out', required=True, help='artifact output path')
+    px.add_argument('--checkpoint-dir', help='checkpoint to bake in '
+                    '(omitted = freshly initialised weights, for smoke '
+                    'tests only)')
+    px.add_argument('--batch', type=int, default=1,
+                    help='clip streams per call')
+    px.add_argument('--window', type=int)
+
+    pc = sub.add_parser('convert', help='offline dataset converters '
+                        '(MOT17 / VisualTB → PASCAL-VOC XML)')
+    pc.add_argument('kind', choices=['mot', 'visualtb'])
+    pc.add_argument('--src', required=True,
+                    help='dataset root (MOT17 root with train/test, or '
+                    'VisualTB root of sequence dirs)')
+    pc.add_argument('--out', required=True, help='output XML root')
+    pc.add_argument('--class-map',
+                    help='VisualTB sequence→class JSON (bare map or '
+                    'legacy config.json with classes_map)')
+    pc.add_argument('--val-split', type=float, default=0.25)
+
+    args = p.parse_args(argv)
+    if args.cmd == 'convert':
+        convert_dataset(args.kind, args.src, args.out,
+                        class_map_path=args.class_map,
+                        validation_split=args.val_split)
+        return 0
+    cfg = _load_cfg(args)
+    device = args.device
+    if args.cmd == 'single':
+        if args.heatmap:
+            cfg.tracker.name = 'TinyHeatmapTracker'
+        single_object_tracking(cfg, synthetic=args.synthetic,
+                               epochs=args.epochs, device=device)
+    elif args.cmd == 'joint':
+        simult_multi_obj_detection_tracking(
+            cfg, synthetic=args.synthetic, epochs=args.epochs,
+            image_size=args.image_size, profile_dir=args.profile_dir,
+            device=device)
+    elif args.cmd == 'detect':
+        if args.cfg:
+            cfg.detector.cfg_path = args.cfg
+        if args.weights:
+            cfg.detector.weights_path = args.weights
+        keras_yolo_obj_detection(cfg, images=args.image,
+                                 out_dir=args.out_dir, train=args.train,
+                                 synthetic=args.synthetic,
+                                 epochs=args.epochs, device=device)
+    elif args.cmd == 'track':
+        track_video(cfg, frames_dir=args.frames, out_dir=args.out_dir,
+                    checkpoint_dir=args.checkpoint_dir,
+                    window=args.window, matcher=args.matcher,
+                    out_video=args.out_video, fps=args.fps, device=device)
+    elif args.cmd == 'eval':
+        evaluate_tracking(cfg, synthetic=args.synthetic,
+                          checkpoint_dir=args.checkpoint_dir,
+                          window=args.window, device=device)
+    elif args.cmd == 'export':
+        export_serving(cfg, out_path=args.out,
+                       checkpoint_dir=args.checkpoint_dir,
+                       batch=args.batch, window=args.window, device=device)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

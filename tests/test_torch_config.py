@@ -17,7 +17,7 @@ def test_constants_equal(name):
 
 @pytest.mark.parametrize('cls', ['DetectorConfig', 'LossConfig',
                                  'TrackerConfig', 'JointConfig',
-                                 'TrainConfig'])
+                                 'TrainConfig', 'MeshConfig'])
 def test_config_fields_have_the_jax_defaults(cls):
     port, ref = getattr(tcfg, cls)(), getattr(jcfg, cls)()
     for field in dataclasses.fields(port):
@@ -34,8 +34,8 @@ def test_detector_config_num_classes():
 def test_config_holds_the_ported_sections():
     cfg = tcfg.Config()
     assert [f.name for f in dataclasses.fields(cfg)] == [
-        'detector', 'loss', 'tracker', 'joint', 'train']
+        'detector', 'loss', 'tracker', 'joint', 'train', 'mesh']
     ref = jcfg.Config()
-    for name in ('detector', 'loss', 'tracker', 'joint', 'train'):
+    for name in ('detector', 'loss', 'tracker', 'joint', 'train', 'mesh'):
         assert type(getattr(cfg, name)).__name__ == \
             type(getattr(ref, name)).__name__

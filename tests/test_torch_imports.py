@@ -54,8 +54,16 @@ def test_package_has_the_slice_modules():
                    'training.callbacks', 'training.metrics',
                    'training.checkpoint', 'training.loop', 'trainer',
                    'ops.heatmap', 'models.fake_detector',
-                   'models.tiny_tracker'):
+                   'models.tiny_tracker', 'serving', 'data.converters'):
         assert f'object_tracking_tpu_torch.{module}' in names
+    from object_tracking_tpu_torch import trainer
+    from object_tracking_tpu_torch.models.convlstm import StackedConvLSTM
+    for flow in ('single_object_tracking',
+                 'simult_multi_obj_detection_tracking',
+                 'keras_yolo_obj_detection', 'evaluate_tracking',
+                 'export_serving', 'track_video', 'convert_dataset', 'main'):
+        assert callable(getattr(trainer, flow)), flow
+    assert StackedConvLSTM.__module__.endswith('models.convlstm')
     for source in ('nms_scores.cu', 'decode_nms.cu'):
         assert (PACKAGE / 'ops' / 'cuda' / 'csrc' / source).is_file()
 

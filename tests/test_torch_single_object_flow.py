@@ -212,9 +212,10 @@ def test_not_ported_names_only_what_waits():
     cfg = tiny_cfg()
     assert trainer._not_ported(cfg) == []
     cfg.joint.moe_experts = 4
-    cfg.joint.convlstm_layers = 2
+    cfg.joint.convlstm_layers = 2            # the deep head, ported
+    cfg.joint.pp_layers = True
     assert trainer._not_ported(cfg, joint=False) == []
     assert trainer._not_ported(cfg, 'trace') == [
         'joint.moe_experts (queue 1, item 16)',
-        'joint.convlstm_layers > 1 (queue 1, item 5)',
+        'joint.pp_layers (queue 1, item 16)',
         'profile_dir (queue 1, item 16)']

@@ -79,15 +79,14 @@ def test_resume_lr_without_checkpoint_raises(tmp_path):
 
 
 @pytest.mark.parametrize('option', ['time_shards', 'moe_experts',
-                                    'convlstm_layers', 'profile_dir',
-                                    'mesh'])
+                                    'pp_layers', 'profile_dir', 'mesh'])
 def test_later_options_raise(tmp_path, option):
     cfg = small_config()
     kw = {}
     if option == 'profile_dir':
         kw['profile_dir'] = str(tmp_path / 'trace')
     elif option == 'mesh':
-        cfg.mesh = type('Mesh', (), {'distributed': True})()
+        cfg.mesh.distributed = True
     else:
         setattr(cfg.joint, option, 2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
