@@ -158,6 +158,7 @@ from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.targets import (
     encode_targets_batch, encode_targets_multiscale)
+from object_tracking_tpu_torch.parallel import moe_capacity
 from object_tracking_tpu_torch.serving import (
     ServedJointPredictor, export_joint, save_artifact)
 from object_tracking_tpu_torch.training import (
@@ -996,11 +997,11 @@ def train_step_fn(net: int, augment: bool):
 
 
 def train_state(device, width_div: int = 1, dtype=torch.float32,
-                seed: int = 0, layers: int = 1) -> TrainState:
+                seed: int = 0, layers: int = 1, **model_kw) -> TrainState:
     model = init_like_flax(MultiObjDetTracker(
         num_classes=NUM_CLASSES, num_anchors=5,
         convlstm_features=512 // width_div, width_div=width_div,
-        dtype=dtype, convlstm_layers=layers), seed)
+        dtype=dtype, convlstm_layers=layers, **model_kw), seed)
     return TrainState.create(model.to(device), make_optimizer(TRAIN_LR))
 
 
@@ -1058,15 +1059,15 @@ def step_parity(cpu: TrainState, card: TrainState, step, batch,
     return out
 
 
-def card_matches_cpu(device, layers: int = 1) -> dict:
+def card_matches_cpu(device, layers: int = 1, **model_kw) -> dict:
     """One fused float32 step without augmentation of a reduced model
-    (width_div=8, 128², T=4, B=2, `layers` ConvLSTM layers) on the card
-    and on the CPU, from the same weights and batch: metrics, gradients,
-    updated parameters and BatchNorm statistics within the CPU parity
-    tests' tolerances."""
+    (width_div=8, 128², T=4, B=2, `layers` ConvLSTM layers, `model_kw`'s
+    options) on the card and on the CPU, from the same weights and batch:
+    metrics, gradients, updated parameters and BatchNorm statistics within
+    the CPU parity tests' tolerances."""
     net = 128
     raw = train_batch(5, 2, net=net, objects=4)
-    cpu = train_state('cpu', width_div=8, layers=layers)
+    cpu = train_state('cpu', width_div=8, layers=layers, **model_kw)
     card = TrainState.create(copy.deepcopy(cpu.model).to(device),
                              make_optimizer(TRAIN_LR))
     out = step_parity(cpu, card, train_step_fn(net, augment=False), raw,
@@ -1074,7 +1075,7 @@ def card_matches_cpu(device, layers: int = 1) -> dict:
     if out['params_moved'] != out['params']:
         raise AssertionError(f'a parameter did not move: {out}')
     return {'shape': {'net': net, 'T': T, 'B': 2, 'width_div': 8,
-                      'convlstm_layers': layers}, **out}
+                      'convlstm_layers': layers, **model_kw}, **out}
 
 
 def checkpoint_round_trip(device) -> dict:
@@ -1595,14 +1596,16 @@ DEEP_LAYERS = 2        # the deep head's ConvLSTM depth on the chip
 SERVED_TOL = 1e-5      # served boxes and scores against JointPredictor's
 
 
-def joint_model(device, layers: int = 1):
+def joint_model(device, layers: int = 1, **model_kw):
     """bench.py's joint model (416², 12 classes, 5 anchors, ConvLSTM-512,
-    full width) with `layers` ConvLSTM layers, random weights from seed 0,
-    in eval() mode (serving writes no statistic)."""
+    full width) with `layers` ConvLSTM layers and `model_kw`'s options,
+    random weights from seed 0, in eval() mode (serving writes no
+    statistic)."""
     torch.manual_seed(0)
     return MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
                               convlstm_features=512, width_div=1,
-                              convlstm_layers=layers).to(device).eval()
+                              convlstm_layers=layers,
+                              **model_kw).to(device).eval()
 
 
 def streamed_windows(pred, clips) -> list:
@@ -1843,6 +1846,334 @@ def served_deep_head(device) -> dict:
             'max_abs_diff_vs_joint_predictor': same_served(got, want)}
 
 
+# ------------------------------------------------------------ parallel paths
+MOE = dict(moe_experts=4, moe_hidden=256)   # JointConfig's hidden width
+MOE_CAPACITY_FACTOR = 1.25                  # MoEGridHead's default
+PROFILED_STEPS = 2
+
+
+def moe_head_ms(model, call) -> dict:
+    """The MoE head's device time on its input of one predict call (CUDA
+    events), beside the call's; the head's input is captured by a hook."""
+    seen = []
+    hook = model.tconv_moe.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].detach()))
+    try:
+        call()
+    finally:
+        hook.remove()
+    z = seen[-1]
+    with torch.no_grad():
+        head = cuda_ms(lambda: model.tconv_moe(z), 5)
+        kernels = device_times(lambda: model.tconv_moe(z), 2)
+    tokens = z.numel() // z.shape[-1]
+    return {'tokens': tokens,
+            'capacity': moe_capacity(tokens, MOE['moe_experts'],
+                                     MOE_CAPACITY_FACTOR),
+            'head_ms': head, 'head_kernels': breakdown(kernels, head)}
+
+
+def host_top(fn, n: int = 8) -> list:
+    """The `n` costliest host ops and CUDA runtime calls of one fn() by
+    self CPU time under torch.profiler: [[name, count, self ms], ...]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:n]
+    return [[e.key[:70], e.count, e.self_cpu_time_total / 1e3]
+            for e in rows]
+
+
+def forward_syncs(model, clips, device) -> dict:
+    """One no-grad forward of `model` on `clips` under sync-debug mode
+    'error': 'none', or the port's innermost frame that synced the host;
+    and the host's time to enqueue one forward (host_us, in ms)."""
+    import traceback
+    x = torch.from_numpy(clips).to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            model(x, train=True)
+            where = 'none'
+        except RuntimeError as e:
+            frames = [f for f in traceback.extract_tb(e.__traceback__)
+                      if 'object_tracking_tpu_torch' in f.filename]
+            where = (f'{Path(frames[-1].filename).name}:{frames[-1].lineno} '
+                     f'{frames[-1].line}' if frames else repr(e)[:200])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enqueue_ms = host_us(lambda: model(x, train=True), 5) / 1e3
+    return {'sync_in_forward': where, 'forward_enqueue_ms': enqueue_ms}
+
+
+def moe_predict(device) -> dict:
+    """The MoE head at bench.py's model: three B=8 predict_batch and three
+    B=1 predict_window calls, kernel 1 once per call and equal to
+    nms_impl='sort'; frames/s at B=1 and B=8 beside the dense head's in
+    this process (median of three samples, all kept); each call's device
+    time and the MoE head's share of it."""
+    model = joint_model(device, **MOE)
+    rng = np.random.RandomState(3)
+    batch_reqs = requests(rng, 8, 3)
+    window_reqs = requests(rng, 1, 3)
+    obj_threshold = pick_obj_threshold(model, batch_reqs[0], device)
+    kwargs = dict(labels=LABELS_MOT17, obj_threshold=obj_threshold,
+                  nms_threshold=NMS_THRESHOLD, net_size=(NET, NET),
+                  device=device)
+    torch.backends.cudnn.deterministic = True    # both runs: same netouts
+    try:
+        cuda_nms.nms_scores.launches = 0
+        results, calls = serve(JointPredictor(model, YOLOV2_ANCHORS,
+                                              **kwargs),
+                               batch_reqs, window_reqs)
+        launches = cuda_nms.nms_scores.launches
+        if launches != calls:
+            raise AssertionError(f'MoE head: nms_scores launched {launches} '
+                                 f'times in {calls} predict calls')
+        sort_results, _ = serve(JointPredictor(model, YOLOV2_ANCHORS,
+                                               nms_impl='sort', **kwargs),
+                                batch_reqs, window_reqs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if sort_results != results:
+        raise AssertionError("MoE head: impl='kernel' and 'sort' disagree")
+    out = {'obj_threshold': obj_threshold, 'predict_calls': calls,
+           'nms_launches': launches, 'kernel_equals_sort': True,
+           **check_results(results, obj_threshold)}
+    rates, profiles = {}, {}
+    for head, m in (('dense', joint_model(device)), ('moe', model)):
+        pred = JointPredictor(m, YOLOV2_ANCHORS, **kwargs)
+        for batch, clips in ((8, batch_reqs[0]), (1, window_reqs[0])):
+            key = f'{head}_b{batch}_float32'
+            median = put_rate(rates, f'fps_{key}',
+                              fps(pred, clips, 5 if batch > 1 else 10,
+                                  batch > 1))
+            call = (lambda c=clips, p=pred: p.predict_batch(c)) \
+                if batch > 1 else \
+                (lambda c=clips, p=pred: p.predict_window(c[0]))
+            profiles[key] = breakdown(device_times(call, 2, m),
+                                      1e3 * batch * T / median)
+            if batch > 1:
+                profiles[key]['host_top'] = host_top(call)
+                profiles[key].update(forward_syncs(m, clips, device))
+            if head == 'moe':
+                share = moe_head_ms(m, call)
+                busy = profiles[key].get('device_busy_ms')
+                share['share_of_call_device_ms'] = (
+                    share['head_ms'] / busy if busy else 'not measured')
+                profiles[key]['moe_head'] = share
+    return {**out, **rates, 'profiles': profiles}
+
+
+def moe_training(device) -> dict:
+    """Fused train steps of the MoE model at B=4 in float32 and bfloat16
+    (flax-like init from seed 0, augmentation on): the first step's
+    moe_aux finite and > 0 and its loss finite; then steps/s, the step's
+    device profile and peak memory (train_readings, lr 0), beside the
+    dense head's float32 step in this process."""
+    step = train_step_fn(NET, augment=True)
+    batches = [train_batch(300 + i, 4) for i in range(4)]
+    readings, first = {}, {}
+    for name, dtype, model_kw in (('float32', torch.float32, MOE),
+                                  ('bfloat16', torch.bfloat16, MOE),
+                                  ('dense_float32', torch.float32, {})):
+        state = train_state(device, dtype=dtype, **model_kw)
+        _, metrics = step(state, batches[0])
+        got = {k: float(metrics[k]) for k in ('loss', 'moe_aux')}
+        if not np.isfinite(list(got.values())).all() or (
+                model_kw and not got['moe_aux'] > 0):
+            raise AssertionError(f'MoE step {name}: {got}')
+        first[name] = got
+        state.with_learning_rate(0.0)
+        train_readings(state, step, batches, f'b4_{name}', readings)
+        del state
+        gc.collect()
+    return {'first_step': first, 'readings': readings}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def nccl_world_of_one(device) -> dict:
+    """A process group of one rank over NCCL (tcp to localhost), the
+    (1, 1) mesh over it, and on the card: a data-parallel fused step
+    (BatchNorm sums, loss counts, metrics and gradients all-reduced over
+    the group of one) against the plain step on the same weights and
+    batch; expert_parallel_moe with one expert against moe_apply at the
+    full-width head's tokens; pipeline_scan with one stage (a pipelined
+    1-layer StackedConvLSTM) against the sequential stack. The group is
+    destroyed afterwards. A failed NCCL init raises."""
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.models.convlstm import StackedConvLSTM
+    from object_tracking_tpu_torch.parallel import (
+        distributed_init, expert_parallel_moe, init_moe_params, make_mesh,
+        moe_apply)
+    import torch.distributed as dist
+    config = MeshConfig(distributed=True, num_processes=1, process_id=0,
+                        coordinator_address=f'localhost:{free_port()}')
+    distributed_init(config, device)
+    try:
+        backend = dist.get_backend()
+        if backend != ('nccl' if device.type == 'cuda' else 'gloo'):
+            raise AssertionError(f'backend {backend} on {device}')
+        mesh = make_mesh(MeshConfig())
+        out = {'backend': backend, 'world_size': dist.get_world_size(),
+               'mesh': mesh.shape}
+        if mesh.shape != {'data': 1, 'model': 1}:
+            raise AssertionError(f'mesh {mesh.shape}')
+
+        # data-parallel step vs the plain step (reduced cut, float32)
+        net = 128
+        raw = train_batch(7, 2, net=net, objects=4)
+        plain = train_state(device, width_div=8)
+        dp_model = init_like_flax(MultiObjDetTracker(
+            num_classes=NUM_CLASSES, num_anchors=5, convlstm_features=64,
+            width_div=8, mesh=mesh), 0).to(device)
+        dp_model.load_state_dict(plain.model.state_dict())
+        dp = TrainState.create(dp_model, make_optimizer(TRAIN_LR))
+        _, m_plain = train_step_fn(net, False)(plain, raw)
+        _, m_dp = make_joint_train_step_fused(
+            YOLOV2_ANCHORS, augment=False, net_h=net, net_w=net,
+            grid_h=net // 32, grid_w=net // 32, num_classes=NUM_CLASSES,
+            true_box_buffer=MAX_BOXES, mesh=mesh)(dp, raw)
+        torch.cuda.synchronize()
+        pp = dict(plain.model.named_parameters())
+        dpp = dict(dp.model.named_parameters())
+        diffs = {
+            'metrics_max_rel': max(abs(float(m_dp[k]) - float(m_plain[k]))
+                                   / max(abs(float(m_plain[k])), 1e-30)
+                                   for k in m_plain),
+            'grads_rel_l2_max': max(rel_l2(dpp[n].grad, p.grad)
+                                    for n, p in pp.items()),
+            'params_rel_l2_max': max(rel_l2(dpp[n].detach(), p.detach())
+                                     for n, p in pp.items())}
+        zero = all(v == 0 for v in diffs.values())
+        out['dp_step_vs_plain'] = {
+            **diffs, 'zero': zero,
+            'tolerance': {'metrics_rtol': METRIC_RTOL, 'rel_l2': LEAF_TOL}}
+        if not zero:
+            out['dp_step_vs_plain']['why_not_zero'] = (
+                'BatchNorm under a data group normalises by sum / count, '
+                'the plain one by mean(): float32 rounding (the sum over a '
+                'group of one is exact)')
+        if (diffs['metrics_max_rel'] > METRIC_RTOL
+                or diffs['grads_rel_l2_max'] > LEAF_TOL
+                or diffs['params_rel_l2_max'] > LEAF_TOL):
+            raise AssertionError(f'dp step vs plain: {diffs}')
+        del plain, dp, dp_model
+        gc.collect()
+
+        # expert parallelism with one expert vs the dense MoE
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_moe_params(gen, 1, 512, MOE['moe_hidden'],
+                                 5 * (5 + NUM_CLASSES), device=device)
+        tokens = torch.randn(8 * T * 13 * 13, 512, generator=gen,
+                             device=device)
+        with torch.no_grad():
+            ep = expert_parallel_moe(params, tokens, mesh, 'model')
+            dense = moe_apply(params, tokens)
+        torch.cuda.synchronize()
+        ep_diff = float((ep - dense).abs().max())
+        out['ep_vs_moe_apply'] = {'tokens': tokens.shape[0],
+                                  'max_abs_diff': ep_diff,
+                                  'scale': float(dense.abs().max()),
+                                  'tolerance': 1e-5}
+        if ep_diff > 1e-5 * max(1.0, float(dense.abs().max())):
+            raise AssertionError(f'EP vs moe_apply: {ep_diff}')
+
+        # one pipeline stage vs the sequential stack
+        torch.manual_seed(4)
+        seq = StackedConvLSTM(512, 1).to(device)
+        piped = StackedConvLSTM(512, 1, pipeline=True, mesh=mesh).to(device)
+        piped.load_state_dict(seq.state_dict())
+        x = torch.randn(1, T, 512, 13, 13, device=device)
+        with torch.no_grad():
+            a, b = piped(x), seq(x)
+        torch.cuda.synchronize()
+        pp_diff = float((a - b).abs().max())
+        out['pipeline_vs_sequential'] = {'max_abs_diff': pp_diff,
+                                         'tolerance': 1e-4}
+        if pp_diff:
+            out['pipeline_vs_sequential']['why_not_zero'] = (
+                'the stage projects each step alone, the sequential stack '
+                'all T steps in one conv')
+        if pp_diff > 1e-4:
+            raise AssertionError(f'pipeline vs sequential: {pp_diff}')
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def profiling_check(device) -> dict:
+    """profile_trace around two fused steps (reduced cut), each inside an
+    annotate range: the trace file holds CUDA kernel events and the
+    ranges; device_memory_stats() is not empty. A trace without device
+    events raises."""
+    from object_tracking_tpu_torch.utils.profiling import (
+        annotate, device_memory_stats, profile_trace)
+    net = 128
+    state = train_state(device, width_div=8, **MOE)
+    step = train_step_fn(net, augment=True)
+    raws = [train_batch(40 + i, 2, net=net, objects=4)
+            for i in range(PROFILED_STEPS)]
+    step(state, raws[0])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            for i, raw in enumerate(raws):
+                with annotate(f'fused_step_{i}'):
+                    step(state, raw)
+        files = list(Path(tmp).glob('*.pt.trace.json'))
+        if len(files) != 1:
+            raise AssertionError(f'profile_trace wrote {files}')
+        size = files[0].stat().st_size
+        with open(files[0]) as f:
+            events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    ranges = {e.get('name') for e in events
+              if str(e.get('name', '')).startswith('fused_step_')}
+    stats = device_memory_stats()
+    out = {'trace_bytes': size, 'events': len(events),
+           'cuda_kernel_events': len(kernels),
+           'annotated_ranges': sorted(ranges),
+           'device_memory_stats': [{
+               k: s.get(k) for k in ('allocated_bytes.all.peak',
+                                     'reserved_bytes.all.peak')}
+               for s in stats]}
+    if not kernels or len(ranges) != PROFILED_STEPS or not stats \
+            or not stats[0]:
+        raise AssertionError(f'profiling: {out}')
+    return out
+
+
+def parallel_phase(device, smi: str) -> dict:
+    """The MoE head and the parallel paths on the card."""
+    out = {'phase': 'parallel', 'net': NET, 'T': T,
+           'classes': NUM_CLASSES, 'convlstm_features': 512,
+           'width_div': 1, **MOE, 'capacity_factor': MOE_CAPACITY_FACTOR,
+           'card': smi}
+    out['moe_predict'] = moe_predict(device)
+    out['moe_train'] = moe_training(device)
+    out['moe_card_vs_cpu'] = card_matches_cpu(device, moe_experts=4,
+                                              moe_hidden=32)
+    out['nccl_world_of_one'] = nccl_world_of_one(device)
+    out['profiling'] = profiling_check(device)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -1886,6 +2217,8 @@ def main() -> int:
     emit(deep)
     served = serve_phase(device, smi, trained)
     emit(served)
+    parallel = parallel_phase(device, smi)
+    emit(parallel)
 
     nms_launches = {'joint_path': path['nms_launches'],
                     'detector_path': detector['nms_launches'],
@@ -1894,7 +2227,9 @@ def main() -> int:
                     'tracker_precompute': tracker_launches['precompute'],
                     'tracker_augment': tracker_launches['augment'],
                     'deep_head_predict': deep['nms_launches'],
-                    **served['nms_launches']}
+                    **served['nms_launches'],
+                    'moe_head_predict':
+                        parallel['moe_predict']['nms_launches']}
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']

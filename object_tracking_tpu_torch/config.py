@@ -9,8 +9,7 @@ six sections and reads and writes both JSON layouts: the new one
 (`Config.to_json` / `from_dict`) and the reference's legacy config.json
 (`from_legacy_json`); `load_config` tells them apart. The parallel
 options (the mesh, `time_shards`, `moe_experts`, `pp_layers`) are read
-and written here; the trainer refuses them until the parallel paths are
-ported (ROADMAP.md queue 1, item 16).
+and written here, and the joint flow runs them (`parallel/`).
 """
 
 from __future__ import annotations
@@ -132,9 +131,11 @@ class JointConfig:
     # Recompute the per-frame detector in backward (activation memory for
     # FLOPs, so that sequence_length can grow).
     remat: bool = False
-    # Options of the JAX model that the port does not have yet (the MoE
-    # head, time sharding, pipeline-parallel stacked layers); the trainer
-    # raises NotImplementedError when one is set.
+    # > 0: the mixture-of-experts tracking head (models/moe_head.py) with
+    # moe_hidden units per expert, its Switch auxiliary loss weighted by
+    # moe_aux_weight; time_shards > 1 shards the clip's time axis over the
+    # mesh's data axis (sequence parallelism); pp_layers pipelines the
+    # stacked ConvLSTM layers over the model axis, one layer per rank.
     moe_experts: int = 0
     moe_hidden: int = 256
     moe_aux_weight: float = 0.01
@@ -190,9 +191,11 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh parallelism fields of the JAX package, read and written
-    so that one config file serves both packages; `distributed` (multi-
-    host) waits for the parallel paths (ROADMAP.md queue 1, item 16)."""
+    """The (data, model) mesh over the world's ranks, one process per
+    device (`parallel/mesh.py`). `distributed` joins a process group:
+    `coordinator_address` is its rendezvous ('host:port' or an init-method
+    URL), `num_processes` the world size and `process_id` this rank; -1
+    reads them from the environment (torchrun)."""
     data_axis: str = 'data'
     model_axis: str = 'model'
     # -1 means "all remaining devices"

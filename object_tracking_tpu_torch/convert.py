@@ -14,6 +14,9 @@ arrays.
 - the deep head's `tconv_stack/{input_kernel, recurrent_kernel}`
   (L, kh, kw, F, 4F) → (L, 4F, F, kh, kw), the same transpose per layer
   of the leading L axis, and `tconv_stack/input_bias` (L, 4F) as it is;
+- the MoE head's `tconv_moe/{gate, w1, b1, w2, b2}` as they are (the
+  port keeps JAX's layout: gate (D, E), w1 (E, D, H), b1 (E, H),
+  w2 (E, H, O), b2 (E, O));
 - Dense `kernel` (in, out) → `weight` (out, in);
 - `bias` → `bias`;
 - BatchNorm `scale` / `bias` and batch_stats `mean` / `var` → `weight` /
@@ -45,9 +48,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+_MOE_LEAVES = ('gate', 'w1', 'b1', 'w2', 'b2')
 _PARAM_LEAVES = {'kernel': 'weight', 'recurrent_kernel': 'recurrent_kernel',
                  'input_kernel': 'input_kernel', 'input_bias': 'input_bias',
-                 'bias': 'bias', 'scale': 'weight'}
+                 'bias': 'bias', 'scale': 'weight',
+                 **{k: k for k in _MOE_LEAVES}}
 _STACKED_KERNELS = ('input_kernel', 'recurrent_kernel')
 _STAT_LEAVES = {'mean': 'running_mean', 'var': 'running_var'}
 _NORM_KEYS = ('weight', 'bias', 'running_mean', 'running_var')
@@ -161,7 +166,7 @@ def to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         elif leaf in _STACKED_KERNELS and value.ndim == 5:
             collection, name = 'params', leaf
             value = value.transpose(0, 3, 4, 2, 1)      # L,OIHW → L,HWIO
-        elif leaf in ('bias', 'input_bias'):
+        elif leaf in ('bias', 'input_bias') + _MOE_LEAVES:
             collection, name = 'params', leaf
         else:
             raise KeyError(f'no flax name for {key} {tuple(value.shape)}')

@@ -11,17 +11,37 @@ Port of `FusedConvLSTM` and `StackedConvLSTM` (sequential mode) in
 Gate order along the 4F channels is (i, f, g, o). NCHW throughout:
 x (B, T, C, H, W), state (c, h) each (B, F, H, W), or (L, B, F, H, W) for
 the stacked layers.
+
+The parallel modes of the JAX layers: `FusedConvLSTM(time_shards > 1)`
+runs its recurrence through `parallel.context.context_parallel_scan` over
+the mesh's data axis (each rank holds and projects T/n frames), and
+`StackedConvLSTM(pipeline=True)` runs its layers through
+`parallel.pipeline.pipeline_scan` over the model axis, each rank holding
+only its layer's slice of the stacked parameters.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from object_tracking_tpu_torch.models.darknet19 import conv
+from object_tracking_tpu_torch.parallel.context import context_parallel_scan
+from object_tracking_tpu_torch.parallel.pipeline import pipeline_scan
+
+
+def _cell(wh: torch.Tensor, carry, xt: torch.Tensor):
+    """One ConvLSTM step: xt (B, 4F, H, W) the projected input with its
+    bias, carry (c, h) → ((c, h), h)."""
+    c_t, h_t = carry
+    gates = xt + F.conv2d(h_t, wh, padding=wh.shape[-1] // 2)
+    gi, gf, gg, go = gates.chunk(4, dim=1)
+    c_t = torch.sigmoid(gf) * c_t + torch.sigmoid(gi) * torch.tanh(gg)
+    h_t = torch.sigmoid(go) * torch.tanh(c_t)
+    return (c_t, h_t), h_t
 
 
 def _recur(xp: torch.Tensor, wh: torch.Tensor, c_t: torch.Tensor,
@@ -29,15 +49,11 @@ def _recur(xp: torch.Tensor, wh: torch.Tensor, c_t: torch.Tensor,
     """The sequential half of a ConvLSTM layer: xp (B, T, 4F, H, W), the
     projected inputs with their bias; wh (4F, F, kh, kw) the recurrent
     kernel (no bias) → (h (B, T, F, H, W), final (c, h))."""
-    pad = wh.shape[-1] // 2
-    hs = []
+    carry, hs = (c_t, h_t), []
     for step in range(xp.shape[1]):
-        gates = xp[:, step] + F.conv2d(h_t, wh, padding=pad)
-        gi, gf, gg, go = gates.chunk(4, dim=1)
-        c_t = torch.sigmoid(gf) * c_t + torch.sigmoid(gi) * torch.tanh(gg)
-        h_t = torch.sigmoid(go) * torch.tanh(c_t)
-        hs.append(h_t)
-    return torch.stack(hs, dim=1), (c_t, h_t)
+        carry, h = _cell(wh, carry, xp[:, step])
+        hs.append(h)
+    return torch.stack(hs, dim=1), carry
 
 
 class FusedConvLSTM(nn.Module):
@@ -48,17 +64,20 @@ class FusedConvLSTM(nn.Module):
       features: hidden state channels F.
       kernel: conv kernel size for both projections (odd, 'SAME' padding).
       dtype: compute dtype (parameters stay float32).
-      time_shards: only 1; sequence parallelism is a later item of the
-        roadmap (queue 1, item 16).
+      time_shards: > 1 time-shards the recurrence over the mesh's data
+        axis (sequence parallelism): x holds this rank's T/time_shards
+        frames, which it projects, and the carry passes rank to rank in
+        `context_parallel_scan`'s exact ring. Requires `mesh`, whose data
+        axis has time_shards ranks.
+      mesh: the `parallel.mesh.Mesh` (read only when time_shards > 1).
     """
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 dtype: torch.dtype = torch.float32, time_shards: int = 1):
+                 dtype: torch.dtype = torch.float32, time_shards: int = 1,
+                 mesh: Any = None):
         super().__init__()
-        if time_shards > 1:
-            raise NotImplementedError(
-                'time_shards > 1 (sequence-parallel ConvLSTM) is not ported '
-                'yet: ROADMAP.md queue 1, item 16 (parallel paths)')
+        self.time_shards = time_shards
+        self.mesh = mesh
         self.features = features
         self.dtype = dtype
         self.input_proj = nn.Conv2d(in_channels, 4 * features, kernel)
@@ -88,11 +107,30 @@ class FusedConvLSTM(nn.Module):
                                 device=x.device)
             initial_state = (zeros, zeros)
         c_t, h_t = (s.to(self.dtype) for s in initial_state)
-        ys, state = _recur(xp, self.recurrent_kernel.to(self.dtype), c_t,
-                           h_t)
+        wh = self.recurrent_kernel.to(self.dtype)
+        if self.time_shards > 1:
+            return self._time_sharded(xp, wh, (c_t, h_t), return_state)
+        ys, state = _recur(xp, wh, c_t, h_t)
         if return_state:
             return ys, state
         return ys
+
+    def _time_sharded(self, xp, wh, state0, return_state: bool):
+        """The recurrence of this rank's frames through the ring scan."""
+        if return_state:
+            raise ValueError(
+                'time_shards > 1 does not return the final state (streaming '
+                'uses the dense scan); set return_state=False')
+        if self.mesh is None:
+            raise ValueError('time_shards > 1 requires a mesh')
+        axis = self.mesh.axis_names[0]
+        if self.mesh.shape[axis] != self.time_shards:
+            raise ValueError(
+                f'time_shards={self.time_shards} must equal the mesh '
+                f'{axis!r} axis size {self.mesh.shape[axis]}')
+        ys = context_parallel_scan(_cell, state0, xp.transpose(0, 1),
+                                   self.mesh, axis_name=axis, consts=wh)
+        return ys.transpose(0, 1)
 
 
 class StackedConvLSTM(nn.Module):
@@ -106,23 +144,41 @@ class StackedConvLSTM(nn.Module):
     scan; here each layer projects all T steps at once (B·T), which
     differs only by rounding.
 
-    `pipeline=True` (the stacked layers pipeline-parallel over a mesh,
-    JAX's `pp_layers`) is a later item of the roadmap (queue 1, item 16).
+    `pipeline=True` (JAX's `pp_layers`) runs the layers as the stages of
+    `pipeline_scan` over the mesh axis `axis_name`, whose size must be
+    num_layers: rank s holds only layer s, as (1, …) slices of the three
+    stacks (`stage` names the group, the index and the count, which the
+    checkpoints read to gather the dense stacks on save). The pipelined
+    path projects each step's input inside its stage, as the JAX layer
+    does. It returns no final state.
     """
 
     def __init__(self, features: int, num_layers: int, kernel: int = 3,
-                 dtype: torch.dtype = torch.float32, pipeline: bool = False):
+                 dtype: torch.dtype = torch.float32, pipeline: bool = False,
+                 mesh: Any = None, axis_name: str = 'model'):
         super().__init__()
-        if pipeline:
-            raise NotImplementedError(
-                'pipeline=True (pipeline-parallel StackedConvLSTM) is not '
-                'ported yet: ROADMAP.md queue 1, item 16 (parallel paths)')
         self.features = features
         self.num_layers = num_layers
         self.dtype = dtype
-        shape = (num_layers, 4 * features, features, kernel, kernel)
+        self.pipeline = pipeline
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.stage = None
+        held = num_layers
+        if pipeline:
+            if mesh is None:
+                raise ValueError('pipeline=True requires a mesh')
+            if mesh.shape[axis_name] != num_layers:
+                raise ValueError(
+                    f'num_layers={num_layers} must equal the mesh '
+                    f'{axis_name!r} axis size {mesh.shape[axis_name]}')
+            group = mesh.group(axis_name)
+            if group is not None:
+                self.stage = (group, mesh.index(axis_name), num_layers)
+                held = 1
+        shape = (held, 4 * features, features, kernel, kernel)
         self.input_kernel = nn.Parameter(torch.empty(shape))
-        self.input_bias = nn.Parameter(torch.empty(num_layers, 4 * features))
+        self.input_bias = nn.Parameter(torch.empty(held, 4 * features))
         self.recurrent_kernel = nn.Parameter(torch.empty(shape))
         self.reset_recurrent_parameters()
 
@@ -130,13 +186,21 @@ class StackedConvLSTM(nn.Module):
     def reset_recurrent_parameters(self) -> None:
         """Every layer's forget-gate bias +1 (the others 0) and both of its
         kernels orthogonal (the 4F output-channel vectors orthonormal), as
-        the JAX layer's `stacked_orthogonal` initialises them."""
+        the JAX layer's `stacked_orthogonal` initialises them. A pipeline
+        stage draws every layer, as the dense stack does, and keeps its
+        own: the same seed gives the same weights in both layouts."""
         f = self.features
         self.input_bias.zero_()
         self.input_bias[:, f:2 * f] = 1.0
+        own = None if self.stage is None else self.stage[1]
         for layer in range(self.num_layers):
-            nn.init.orthogonal_(self.input_kernel[layer])
-            nn.init.orthogonal_(self.recurrent_kernel[layer])
+            for kernel in (self.input_kernel, self.recurrent_kernel):
+                drawn = nn.init.orthogonal_(torch.empty(
+                    kernel.shape[1:], device=kernel.device))
+                if own is None:
+                    kernel[layer] = drawn
+                elif layer == own:
+                    kernel[0] = drawn
 
     def forward(self, x: torch.Tensor,
                 initial_state: Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -155,6 +219,8 @@ class StackedConvLSTM(nn.Module):
         c0, h0 = (s.to(self.dtype) for s in initial_state)
         ys = x.to(self.dtype)
         pad = self.input_kernel.shape[-1] // 2
+        if self.pipeline:
+            return self._pipelined(ys, (c0, h0), pad, return_state)
         finals = []
         for layer in range(self.num_layers):
             xp = F.conv2d(ys.reshape(b * t, f, h, w),
@@ -167,3 +233,24 @@ class StackedConvLSTM(nn.Module):
         if return_state:
             return ys, tuple(torch.stack(s) for s in zip(*finals))
         return ys
+
+    def _pipelined(self, x, state0, pad: int, return_state: bool):
+        """The layers as pipeline stages over the timesteps of x."""
+        if return_state:
+            raise ValueError('pipeline=True does not return the final state '
+                             '(streaming uses the sequential path)')
+
+        def stage(params, carry, xt):
+            wx, bx, wh = params
+            xp = F.conv2d(xt, wx.to(self.dtype), bx.to(self.dtype),
+                          padding=pad)
+            return _cell(wh.to(self.dtype), carry, xp)
+
+        if self.stage is not None:          # this rank's (1, ...) slice
+            s = self.stage[1]
+            state0 = tuple(c[s:s + 1] for c in state0)
+        ys = pipeline_scan(
+            stage, (self.input_kernel, self.input_bias,
+                    self.recurrent_kernel), x.transpose(0, 1), self.mesh,
+            axis_name=self.axis_name, carry_init=state0)
+        return ys.transpose(0, 1)

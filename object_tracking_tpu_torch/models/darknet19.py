@@ -16,15 +16,20 @@ conv reshaped to (H/32, W/32, A, 5+C).
   statistics.
 - `space_to_depth_2x` orders channels (di, dj, c), as tf.space_to_depth
   does — not `F.pixel_unshuffle`'s (c, di, dj).
+- With a `mesh`, batch statistics span the data group: each rank holds a
+  share of the global batch, as under JAX's sharded `jit`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from object_tracking_tpu_torch.parallel.collectives import (
+    all_reduce_sum, group_size)
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -102,13 +107,21 @@ class BatchNorm(nn.Module):
     ra = 0.99·ra + 0.01·batch; in `eval()` mode it writes nothing.
     Without a gradient to take, the normalisation is one `F.batch_norm`
     on those statistics.
+
+    With a data `group` (each rank a share of the global batch) the two
+    sums are all-reduced over it, with the gradient of the global
+    statistics: the mean and E[x²] of the global batch, as flax computes
+    them under a sharded `jit`. Neither plain DDP (per-rank statistics)
+    nor `SyncBatchNorm` (an unbiased variance in the running statistics)
+    computes that.
     """
 
     momentum = 0.99
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    def __init__(self, features: int, eps: float = 1e-3, group=None):
         super().__init__()
         self.eps = eps
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
@@ -120,9 +133,16 @@ class BatchNorm(nn.Module):
         else:
             dims = (0, 2, 3)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min(torch.square(xf).mean(dim=dims)
-                                  - torch.square(mean), 0.0)
+            if self.group is None:
+                mean = xf.mean(dim=dims)
+                sq = torch.square(xf).mean(dim=dims)
+            else:
+                count = xf.numel() // xf.shape[1] * group_size(self.group)
+                sums = all_reduce_sum(torch.stack(
+                    [xf.sum(dim=dims), torch.square(xf).sum(dim=dims)]),
+                    self.group)
+                mean, sq = sums[0] / count, sums[1] / count
+            var = torch.clamp_min(sq - torch.square(mean), 0.0)
             if self.training:
                 with torch.no_grad():
                     self.running_mean.lerp_(mean, 1.0 - self.momentum)
@@ -152,6 +172,8 @@ class Darknet19(nn.Module):
       num_anchors: anchor boxes per cell.
       dtype: activation dtype (torch.float32 or torch.bfloat16).
       width_div: divide every backbone width by this (floor 4 channels).
+      mesh: a `parallel.mesh.Mesh` whose data group the BatchNorm
+        statistics span (None: this process's batch alone).
     """
 
     # (conv index, features, kernel) with pools after 1, 2, 5, 8, 13
@@ -165,8 +187,10 @@ class Darknet19(nn.Module):
     POOL_AFTER = frozenset((1, 2, 5, 8, 13))
 
     def __init__(self, num_classes: int = 80, num_anchors: int = 5,
-                 dtype: torch.dtype = torch.float32, width_div: int = 1):
+                 dtype: torch.dtype = torch.float32, width_div: int = 1,
+                 mesh: Any = None):
         super().__init__()
+        self._bn_group = None if mesh is None else mesh.data_group
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.dtype = dtype
@@ -188,7 +212,8 @@ class Darknet19(nn.Module):
     def _add_block(self, idx: int, c_in: int, c_out: int, kernel: int):
         self.add_module(f'conv_{idx}', nn.Conv2d(c_in, c_out, kernel,
                                                  bias=False))
-        self.add_module(f'norm_{idx}', BatchNorm(c_out))
+        self.add_module(f'norm_{idx}', BatchNorm(c_out,
+                                                 group=self._bn_group))
 
     def _block(self, x, idx: int, train: bool):
         x = conv(x, getattr(self, f'conv_{idx}'))

@@ -17,6 +17,11 @@ loss as a function of (y_pred, y_true, true_boxes, step):
 The loss is float32 whatever the compute type of the predictions. `step`
 is a host int (the train state's step read before its increment), so the
 warm-up is a Python branch and costs no sync.
+
+With a data `group` (each rank a share of the global batch) the box
+counts that normalise the terms are summed over the group, so that each
+rank's terms are its share of the global loss (the shares sum to it) and
+the recall is the global one: a mean of per-rank losses is another loss.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from object_tracking_tpu_torch.parallel.collectives import all_reduce_sum_
 
 EPS = 1e-6
 
@@ -52,6 +59,7 @@ def yolo_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
               class_scale: float = 1.0,
               best_iou_threshold: float = 0.6,
               class_weights: Optional[torch.Tensor] = None,
+              group=None,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """YOLOv2 loss.
 
@@ -62,6 +70,8 @@ def yolo_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
       anchors: (2A,) or (A, 2) anchor priors in cell units (a host copy
         moves to y_pred's device without a sync).
       step: global step (host int), drives the warm-up branch.
+      group: the data group whose ranks share the global batch (None:
+        this batch is the whole one).
 
     Returns:
       (scalar loss, aux dict with per-component losses and recall), all
@@ -119,9 +129,15 @@ def yolo_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
             * no_boxes_mask
         coord_mask = torch.ones_like(coord_mask)
 
-    nb_coord_box = (coord_mask > 0.0).float().sum()
-    nb_conf_box = (conf_mask > 0.0).float().sum()
-    nb_class_box = (class_mask > 0.0).float().sum()
+    nb_true_box = objectness.sum()
+    nb_pred_box = torch.sum((true_box_conf > 0.5).float()
+                            * (pred_box_conf > 0.3).float())
+    counts = torch.stack([(coord_mask > 0.0).float().sum(),
+                          (conf_mask > 0.0).float().sum(),
+                          (class_mask > 0.0).float().sum(),
+                          nb_true_box, nb_pred_box]).detach()
+    nb_coord_box, nb_conf_box, nb_class_box, nb_true_box, nb_pred_box = \
+        all_reduce_sum_(counts, group)
 
     loss_xy = (torch.sum(torch.square(true_box_xy - pred_box_xy) * coord_mask)
                / (nb_coord_box + EPS) / 2.0)
@@ -134,10 +150,6 @@ def yolo_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
     loss_class = torch.sum(loss_class * class_mask) / (nb_class_box + EPS)
 
     loss = loss_xy + loss_wh + loss_conf + loss_class
-
-    nb_true_box = objectness.sum()
-    nb_pred_box = torch.sum((true_box_conf > 0.5).float()
-                            * (pred_box_conf > 0.3).float())
     aux = {'loss_xy': loss_xy, 'loss_wh': loss_wh, 'loss_conf': loss_conf,
            'loss_class': loss_class, 'loss': loss,
            'recall': nb_pred_box / (nb_true_box + EPS)}

@@ -1,0 +1,24 @@
+"""Parallel paths of the port: one process per device, the ranks laid out
+as a (data, model) mesh.
+
+Port of `object_tracking_tpu/parallel/`: the mesh and the batch's slice
+(`mesh.py`), the context-parallel scan (`context.py`), the pipeline
+(`pipeline.py`) and the mixture-of-experts routing, dense and
+expert-parallel (`expert.py`), over `torch.distributed` process groups
+whose collectives carry JAX's autograd rules (`collectives.py`). Tensor
+parallelism (`sharding.py` in the JAX package) is not ported yet.
+"""
+
+from object_tracking_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, make_mesh, data_sharding, distributed_init, replicated_sharding,
+    shard_batch, local_batch_size,
+)
+from object_tracking_tpu_torch.parallel.context import (  # noqa: F401
+    context_parallel_scan,
+)
+from object_tracking_tpu_torch.parallel.pipeline import (  # noqa: F401
+    gpipe, pipeline_scan,
+)
+from object_tracking_tpu_torch.parallel.expert import (  # noqa: F401
+    expert_parallel_moe, init_moe_params, moe_apply, moe_capacity,
+)

@@ -10,8 +10,17 @@ training), `evaluate_tracking` (CLEAR-MOT over the val split),
 (drawn frames and an optional video) and `convert_dataset` (MOT17 /
 VisualTB → VOC). The training flows wire generators → steps → fit loop
 with the checkpoint / early-stop / plateau-LR / metric-logging stack.
-Every flow runs on one device ('cuda' unless the caller passes
-`device='cpu'`; a missing card raises). `synthetic=True` fabricates a
+Every flow runs on one device per process ('cuda' unless the caller
+passes `device='cpu'`; a missing card raises). With
+`cfg.mesh.distributed` (its address, process count and id, or
+`torchrun`'s environment) the training flows join a process group (NCCL
+on the card, gloo on the CPU) and lay the ranks out
+as `cfg.mesh`'s (data, model) mesh: the joint flow trains data-parallel
+on the global batch (each rank a slice of it; along time with
+`joint.time_shards` > 1), with the MoE head, pipeline-parallel stacked
+layers (`joint.pp_layers`) and sequence parallelism as configured; the
+single-object and detector flows run the whole batch on every rank.
+Only rank 0 writes logs and checkpoints. `synthetic=True` fabricates a
 small dataset first. `main` is the command line:
 
     python -m object_tracking_tpu_torch.trainer [--device cpu] <command>
@@ -35,21 +44,30 @@ import torch
 from object_tracking_tpu_torch.inference import resolve_device
 
 
-def _common_setup(cfg, workdir: Optional[str] = None):
-    """mkdir the log and model dirs under `workdir` (default '.')."""
+def _common_setup(cfg, workdir: Optional[str] = None, device='cpu'):
+    """mkdir the log and model dirs under `workdir` (default '.'), join
+    the process group (when cfg.mesh.distributed), build the mesh and the
+    shard fn (this rank's slice of a global host batch)."""
+    from object_tracking_tpu_torch.parallel import (
+        distributed_init, make_mesh, shard_batch)
+    distributed_init(cfg.mesh, device)
     base = workdir or '.'
     logs = os.path.join(base, cfg.train.tensorboard_dir)
     models = os.path.join(base, cfg.train.saved_model_dir)
     os.makedirs(logs, exist_ok=True)
     os.makedirs(models, exist_ok=True)
-    return logs, models
+    mesh = make_mesh(cfg.mesh)
+    return logs, models, mesh, (lambda b: shard_batch(mesh, b))
 
 
 def _make_callback_stack(cfg, logs: str, ckpt_dir: str, joint: bool):
+    """(logger, checkpoints, early stopping, plateau LR); the logger is
+    None on every rank but rank 0."""
+    from object_tracking_tpu_torch.parallel.mesh import is_writer
     from object_tracking_tpu_torch.training import (
         CheckpointManager, EarlyStopping, MetricLogger, ReduceLROnPlateau)
     from object_tracking_tpu_torch.training.metrics import numbered_run_dir
-    logger = MetricLogger(numbered_run_dir(logs))
+    logger = MetricLogger(numbered_run_dir(logs)) if is_writer() else None
     ckpts = CheckpointManager(ckpt_dir)
     early = EarlyStopping(patience=cfg.train.early_stop_patience)
     reduce_lr = ReduceLROnPlateau(
@@ -73,33 +91,6 @@ def _synthetic_dirs(cfg, image_size, labels, frames=12, videos=2,
     cfg.train.val_image_folder = img_dir
     cfg.train.val_annot_folder = ann_dir
     return cfg
-
-
-def _not_ported(cfg, profile_dir=None, joint: bool = True) -> list:
-    """The JAX flows' options that the port does not have yet: multi-host
-    runs for every flow; for the joint flows also their parallel variants
-    (time sharding, the MoE head, pipeline-parallel stacked layers) and
-    profiling."""
-    later = []
-    if cfg.mesh.distributed:
-        later.append('mesh.distributed (queue 1, item 16)')
-    if not joint:
-        return later
-    if cfg.joint.time_shards > 1:
-        later.append('joint.time_shards > 1 (queue 1, item 16)')
-    if cfg.joint.moe_experts:
-        later.append('joint.moe_experts (queue 1, item 16)')
-    if cfg.joint.pp_layers:
-        later.append('joint.pp_layers (queue 1, item 16)')
-    if profile_dir:
-        later.append('profile_dir (queue 1, item 16)')
-    return later
-
-
-def _refuse_later(later: list) -> None:
-    if later:
-        raise NotImplementedError('not ported yet, see ROADMAP.md: '
-                                  + ', '.join(later))
 
 
 def _resume(cfg, ckpts, state):
@@ -177,7 +168,6 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
         TrainState, fit, make_optimizer, make_tiny_eval_step,
         make_tiny_train_step)
 
-    _refuse_later(_not_ported(cfg, joint=False))
     device = resolve_device(device)
     heatmap = cfg.tracker.name == 'TinyHeatmapTracker'
     if cfg.tracker.residual and not heatmap and cfg.tracker.loss == 'bce':
@@ -191,7 +181,7 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
     if synthetic:
         labels = ('1',)
         cfg = _synthetic_dirs(cfg, (128, 128), labels, workdir=workdir)
-    logs, models_dir = _common_setup(cfg, workdir)
+    logs, models_dir, _, _ = _common_setup(cfg, workdir, device)
     if detector is None:
         detector = _prior_source(cfg, labels, synthetic, device)
     feature_layer = _feature_layer(cfg, detector)
@@ -238,23 +228,33 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
                 early_stopping=early, reduce_lr=reduce_lr,
                 log_every_steps=cfg.train.log_every_steps,
                 checkpoint_every=cfg.train.checkpoint_every_epochs)
-    logger.close()
+    if logger:
+        logger.close()
     ckpts.close()
     return state
 
 
-def _joint_model(cfg, labels):
+def _joint_model(cfg, labels, mesh=None):
     """The joint model of `cfg` for `labels`, on the CPU, initialised as
-    flax initialises the JAX one (seed cfg.train.seed)."""
+    flax initialises the JAX one (seed cfg.train.seed). Without a `mesh`
+    it is the dense model (eval, tracking, export): time sharding and the
+    pipelined stack are layouts of training, and a checkpoint of any
+    layout restores into it."""
     from object_tracking_tpu_torch.models import MultiObjDetTracker
     from object_tracking_tpu_torch.models.darknet19 import init_like_flax
+    parallel = {}
+    if mesh is not None:
+        parallel = dict(time_shards=cfg.joint.time_shards,
+                        pp_layers=cfg.joint.pp_layers, mesh=mesh)
     return init_like_flax(MultiObjDetTracker(
         num_classes=len(labels), num_anchors=cfg.detector.num_anchors,
         convlstm_features=cfg.joint.convlstm_features,
         width_div=cfg.detector.width_div,
         dtype=getattr(torch, cfg.joint.compute_dtype),
-        remat=cfg.joint.remat,
-        convlstm_layers=cfg.joint.convlstm_layers), cfg.train.seed)
+        remat=cfg.joint.remat, moe_experts=cfg.joint.moe_experts,
+        moe_hidden=cfg.joint.moe_hidden,
+        convlstm_layers=cfg.joint.convlstm_layers, **parallel),
+        cfg.train.seed)
 
 
 def _restore_variables(model, checkpoint_dir: Optional[str],
@@ -306,15 +306,16 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     `epochs` counts the epochs of this call (on resume, after the restored
     ones). The fused path (`cfg.train.device_data`, the default) feeds raw
     uint8 batches to the fused steps; `cfg.train.debug` keeps the legacy
-    host pipeline, whose augmented pixels it dumps.
+    host pipeline, whose augmented pixels it dumps. `profile_dir` captures
+    a profiler trace of the whole fit there (`utils.profiling`).
     """
+    import contextlib
     from object_tracking_tpu_torch.data import (
         SequenceBatches, make_sequence_windows, parse_annotation_dir)
     from object_tracking_tpu_torch.training import (
         TrainState, fit, make_joint_eval_step, make_joint_eval_step_fused,
         make_joint_train_step, make_joint_train_step_fused, make_optimizer)
 
-    _refuse_later(_not_ported(cfg, profile_dir))
     device = resolve_device(device)
     labels = cfg.joint.labels
     size = image_size or cfg.detector.image_h
@@ -322,7 +323,7 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     if synthetic:
         labels = ('1', '2')
         cfg = _synthetic_dirs(cfg, (size, size), labels, workdir=workdir)
-    logs, models_dir = _common_setup(cfg, workdir)
+    logs, models_dir, mesh, shard_fn = _common_setup(cfg, workdir, device)
 
     fused = cfg.train.device_data and not cfg.train.debug
 
@@ -344,7 +345,17 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     val_gen = build(cfg.train.val_image_folder,
                     cfg.train.val_annot_folder, False)
 
-    model = _joint_model(cfg, labels)
+    # sequence parallelism: time_shards > 1 shards the clip's time axis
+    # over the mesh's data axis, and the host batches are sliced to match
+    ts = cfg.joint.time_shards
+    if ts > 1:
+        from object_tracking_tpu_torch.parallel import shard_batch
+        if cfg.joint.sequence_length % ts:
+            raise ValueError(
+                f'time_shards={ts} must divide sequence_length='
+                f'{cfg.joint.sequence_length}')
+        shard_fn = lambda b: shard_batch(mesh, b, axis=1)  # noqa: E731
+    model = _joint_model(cfg, labels, mesh)
     if cfg.detector.weights_path:
         _load_darknet_backbone(model, cfg, gh, gw)
     model = model.to(device)
@@ -361,24 +372,31 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
                    true_box_buffer=cfg.train.max_boxes_per_image)
         train_step = make_joint_train_step_fused(
             cfg.detector.anchors, cfg.loss, cfg.joint,
-            augment=cfg.train.augment, **enc)
+            augment=cfg.train.augment, mesh=mesh, **enc)
         eval_step = make_joint_eval_step_fused(
-            cfg.detector.anchors, cfg.loss, cfg.joint, **enc)
+            cfg.detector.anchors, cfg.loss, cfg.joint, mesh=mesh, **enc)
     else:
         train_step = make_joint_train_step(cfg.detector.anchors, cfg.loss,
-                                           cfg.joint)
+                                           cfg.joint, mesh=mesh)
         eval_step = make_joint_eval_step(cfg.detector.anchors, cfg.loss,
-                                         cfg.joint)
-    state = fit(state, train_step, train_gen,
-                eval_step=eval_step, val_batches=val_gen,
-                # resumed runs continue the epoch sequence, so that saves
-                # go on past the restored step
-                epochs=at + (epochs or cfg.train.max_epochs),
-                initial_epoch=at, logger=logger, checkpoints=ckpts,
-                early_stopping=early, reduce_lr=reduce_lr,
-                log_every_steps=cfg.train.log_every_steps,
-                checkpoint_every=cfg.train.checkpoint_every_epochs)
-    logger.close()
+                                         cfg.joint, mesh=mesh)
+    trace = contextlib.nullcontext()
+    if profile_dir:
+        from object_tracking_tpu_torch.utils.profiling import profile_trace
+        trace = profile_trace(profile_dir)
+    with trace:
+        state = fit(state, train_step, train_gen,
+                    eval_step=eval_step, val_batches=val_gen,
+                    # resumed runs continue the epoch sequence, so that
+                    # saves go on past the restored step
+                    epochs=at + (epochs or cfg.train.max_epochs),
+                    initial_epoch=at, shard_fn=shard_fn, logger=logger,
+                    checkpoints=ckpts, early_stopping=early,
+                    reduce_lr=reduce_lr,
+                    log_every_steps=cfg.train.log_every_steps,
+                    checkpoint_every=cfg.train.checkpoint_every_epochs)
+    if logger:
+        logger.close()
     ckpts.close()
     return state
 
@@ -421,7 +439,6 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
     """
     from object_tracking_tpu_torch.models import YOLOv2Detector
 
-    _refuse_later(_not_ported(cfg, joint=False))
     device = resolve_device(device)
     if cfg.detector.cfg_path:
         detector = _cfg_detector(cfg, cfg.detector.labels, device)
@@ -482,7 +499,7 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
         model = detector.model
     if not loaded:
         init_like_flax(model, cfg.train.seed)
-    logs, models_dir = _common_setup(cfg, workdir)
+    logs, models_dir, _, _ = _common_setup(cfg, workdir, device)
     anns, _ = parse_annotation_dir(
         cfg.train.train_annot_folder, cfg.train.train_image_folder,
         labels, cache_dir=cfg.train.annotation_cache_dir or None)
@@ -508,7 +525,8 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
                 epochs=at + (epochs or cfg.train.max_epochs),
                 initial_epoch=at, logger=logger, checkpoints=ckpts,
                 early_stopping=early, reduce_lr=reduce_lr)
-    logger.close()
+    if logger:
+        logger.close()
     ckpts.close()
     return state
 
@@ -517,7 +535,6 @@ def _joint_predictor(cfg, labels, device, checkpoint_dir, **kwargs):
     """JointPredictor over the joint model of `cfg`, with the latest
     checkpoint under `checkpoint_dir` when there is one."""
     from object_tracking_tpu_torch.inference import JointPredictor
-    _refuse_later(_not_ported(cfg))
     device = resolve_device(device)
     model = _joint_model(cfg, labels)
     _restore_variables(model, checkpoint_dir)
@@ -569,7 +586,6 @@ def export_serving(cfg, *, out_path: str,
     serving artifact to `out_path`."""
     from object_tracking_tpu_torch.serving import export_joint, save_artifact
 
-    _refuse_later(_not_ported(cfg))
     device = resolve_device(device)
     labels = cfg.joint.labels
     size = cfg.detector.image_h
@@ -747,8 +763,9 @@ def main(argv=None) -> int:
     pj.add_argument('--synthetic', action='store_true')
     pj.add_argument('--epochs', type=int)
     pj.add_argument('--image-size', type=int, default=None)
-    pj.add_argument('--profile-dir', help='not ported yet (ROADMAP.md '
-                    'queue 1, item 16): the flow refuses it')
+    pj.add_argument('--profile-dir', help='capture a torch.profiler trace '
+                    '(host, and the card when there is one) of the whole '
+                    'fit into this directory')
 
     pd = sub.add_parser('detect', help='standalone YOLOv2 detector')
     pd.add_argument('--image', action='append', default=[])

@@ -11,6 +11,12 @@ The policies are orbax's: at most `max_to_keep` checkpoints stay, the
 latest ones, or with `best_mode` the ones with the lowest 'val_loss' (and
 every one saved without metrics); a save at a step not above the latest
 saved step is skipped.
+
+In a multi-rank run every rank calls `save` and `restore`: only rank 0
+writes, every rank restores. A pipelined stack's parameters and their
+Adam moments are gathered into the dense (L, …) layout on save (so that
+a checkpoint of any layout restores into the dense model) and each stage
+takes its slice back on restore.
 """
 
 from __future__ import annotations
@@ -22,7 +28,25 @@ from typing import Dict, List, Optional
 
 import torch
 
+from object_tracking_tpu_torch.parallel.mesh import barrier, is_writer
+from object_tracking_tpu_torch.parallel.pipeline import (
+    gather_stages, local_stage, stage_sharded_parameters)
+
 _NAME = re.compile(r'ckpt_(\d+)\.pt$')
+
+
+def _map_moments(model, optimizer_state: Dict, staged: Dict, fn) -> None:
+    """Apply `fn` ({name: tensor}, staged) → {name: tensor} to the Adam
+    moments of the stage-sharded parameters, in place; the optimizer's
+    state is keyed by the parameters' order in the model."""
+    for i, (name, _) in enumerate(model.named_parameters()):
+        moments = optimizer_state['state'].get(i)
+        if name not in staged or moments is None:
+            continue
+        # a new dict: state_dict() shares the live optimizer's
+        optimizer_state['state'][i] = dict(moments, **{
+            key: fn({name: moments[key]}, {name: staged[name]})[name]
+            for key in ('exp_avg', 'exp_avg_sq')})
 
 
 def _atomic_write(path: str, write) -> None:
@@ -68,20 +92,28 @@ class CheckpointManager:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
-        payload = {
-            'step': int(state.step),
-            'params': {k: v.detach().cpu() for k, v in state.params.items()},
-            'batch_stats': {k: v.detach().cpu()
-                            for k, v in state.batch_stats.items()},
-            'optimizer': state.optimizer.state_dict()}
-        scalars = {k: float(v) for k, v in (metrics or {}).items()}
+        params = {k: v.detach() for k, v in state.params.items()}
+        optimizer = state.optimizer.state_dict()
+        staged = stage_sharded_parameters(state.model)
+        if staged:
+            params = gather_stages(params, staged)
+            _map_moments(state.model, optimizer, staged, gather_stages)
+        if is_writer():
+            payload = {
+                'step': int(state.step),
+                'params': {k: v.cpu() for k, v in params.items()},
+                'batch_stats': {k: v.detach().cpu()
+                                for k, v in state.batch_stats.items()},
+                'optimizer': optimizer}
+            scalars = {k: float(v) for k, v in (metrics or {}).items()}
 
-        def write_json(path):
-            with open(path, 'w') as f:
-                json.dump(scalars, f)
-        _atomic_write(self._path(step, 'json'), write_json)
-        _atomic_write(self._path(step), lambda p: torch.save(payload, p))
-        self._remove_old()
+            def write_json(path):
+                with open(path, 'w') as f:
+                    json.dump(scalars, f)
+            _atomic_write(self._path(step, 'json'), write_json)
+            _atomic_write(self._path(step), lambda p: torch.save(payload, p))
+            self._remove_old()
+        barrier()
         return True
 
     def _remove_old(self) -> None:
@@ -115,8 +147,14 @@ class CheckpointManager:
             return state_template, None
         payload = torch.load(self._path(step), map_location='cpu',
                              weights_only=True)
+        params = payload['params']
+        staged = stage_sharded_parameters(state_template.model)
+        if staged:
+            params = local_stage(params, staged)
+            _map_moments(state_template.model, payload['optimizer'], staged,
+                         local_stage)
         state_template.model.load_state_dict(
-            {**payload['params'], **payload['batch_stats']}, strict=True)
+            {**params, **payload['batch_stats']}, strict=True)
         if not variables_only:
             state_template.optimizer.load_state_dict(payload['optimizer'])
         state_template.step = int(payload['step'])

@@ -9,8 +9,9 @@ logging are explicit components wired here.
   generators are host work only (decode, padding); `TrackerSequenceBatches`
   also runs its frozen prior on the device from that thread, on the same
   stream as the steps, which orders the two.
-- `to_device` (identity by default; the steps move their batch
-  themselves) runs on the main thread.
+- `shard_fn` (JAX's: `parallel.shard_batch` bound to the mesh, which
+  keeps this rank's slice of the global host batch; identity by default,
+  as the steps move their batch themselves) runs in that thread.
 - A step's metrics stay device tensors; `_MetricHistory` pulls them with
   one `torch.stack(...).cpu()` per epoch, so the step loop never waits for
   the card.
@@ -101,7 +102,7 @@ def fit(state,
         val_batches: Optional[Callable[[], Iterable]] = None,
         epochs: int = 100,
         initial_epoch: int = 0,
-        to_device: Optional[Callable] = None,
+        shard_fn: Optional[Callable] = None,
         logger: Optional[MetricLogger] = None,
         checkpoints: Optional[CheckpointManager] = None,
         early_stopping: Optional[EarlyStopping] = None,
@@ -115,18 +116,19 @@ def fit(state,
     Args:
       train_batches / val_batches: zero-arg callables returning a fresh
         iterator of host batches each epoch.
-      to_device: host batch → what the steps take, on the main thread;
-        identity if None.
+      shard_fn: host batch → what the steps take (this rank's slice of
+        it); identity if None.
       on_epoch_end: optional hook (epoch, state, train_metrics,
         val_metrics).
     """
-    move = to_device or (lambda b: b)
+    shard = shard_fn or (lambda b: b)
     step_count = int(state.step)
     for epoch in range(initial_epoch, epochs):
         t0 = time.time()
         train_hist = _MetricHistory()
-        for batch in _prefetch(train_batches, prefetch):
-            state, metrics = train_step(state, move(batch))
+        for batch in _prefetch(
+                lambda: (shard(b) for b in train_batches()), prefetch):
+            state, metrics = train_step(state, batch)
             step_count += 1
             train_hist.add(metrics, step_count)
         train_rows, train_metrics = train_hist.materialize()
@@ -138,8 +140,9 @@ def fit(state,
         val_metrics = {}
         if eval_step is not None and val_batches is not None:
             val_hist = _MetricHistory()
-            for b in _prefetch(val_batches, prefetch):
-                val_hist.add(eval_step(state, move(b)))
+            for b in _prefetch(
+                    lambda: (shard(b) for b in val_batches()), prefetch):
+                val_hist.add(eval_step(state, b))
             _, val_metrics = val_hist.materialize()
             if logger and val_metrics:
                 logger.log(step_count, val_metrics, prefix='val')

@@ -13,16 +13,22 @@ so ReduceLROnPlateau changes it without rebuilding anything.
 Global-norm clipping follows optax's `clip_by_global_norm`: the gradients
 are scaled by max/norm only when norm >= max (`clip_grad_norm_` scales by
 max/(norm + 1e-6) whenever norm > max), computed on the device without a
-host sync.
+host sync. Under pipeline parallelism a stage's parameters live on its
+rank alone, so their squared norms are summed over the stage group: the
+norm is the dense model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from object_tracking_tpu_torch.parallel.pipeline import (
+    stage_sharded_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,17 +53,45 @@ def make_optimizer(learning_rate: float = 1e-4,
     return Optimizer(learning_rate, grad_clip_norm)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
-    """Scale `grads` in place by max_norm / norm when norm >= max_norm
-    (optax's rule); returns the global norm, a device scalar."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Sequence[Tuple[object, List[torch.Tensor]]]
+                         = ()) -> torch.Tensor:
+    """Scale `grads` (and the `sharded` ones) in place by max_norm / norm
+    when norm >= max_norm (optax's rule); returns the global norm, a device
+    scalar. `sharded` lists (group, grads) whose squares sum over their
+    group (pipeline stages)."""
+    every = list(grads) + [g for _, part in sharded for g in part]
+    norm = torch.zeros((), device=every[0].device)
+    if grads:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    for group, part in sharded:
+        sq = torch.stack([torch.square(torch.linalg.vector_norm(g.float()))
+                          for g in part]).sum()
+        dist.all_reduce(sq, group=group)
+        norm = torch.sqrt(torch.square(norm) + sq)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
-    for g in grads:
+    for g in every:
         g.mul_(factor.to(g.dtype))
     return norm
+
+
+def clip_model_gradients_(model: nn.Module, max_norm: float
+                          ) -> torch.Tensor:
+    """`clip_by_global_norm_` over the gradients of `model`'s parameters,
+    a pipelined stack's stage slices summed over their stage group;
+    returns the global norm."""
+    staged = stage_sharded_parameters(model)
+    groups, grads = {}, []
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        if name in staged:
+            groups.setdefault(staged[name][0], []).append(p.grad)
+        else:
+            grads.append(p.grad)
+    return clip_by_global_norm_(grads, max_norm, list(groups.items()))
 
 
 class TrainState:
@@ -87,9 +121,7 @@ class TrainState:
         """Clip (when set) and take one Adam step on the gradients that
         backward left in the parameters; the step count advances."""
         if self.grad_clip_norm is not None:
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            clip_by_global_norm_(grads, self.grad_clip_norm)
+            clip_model_gradients_(self.model, self.grad_clip_norm)
         self.optimizer.step()
         self.step += 1
         return self

@@ -6,8 +6,9 @@ its configuration and returns `step(state, batch)`. A train step returns
 `metrics`.
 
 - Joint detect+track: the loss is 0.7·track + 0.3·detect YOLOv2 losses
-  (`JointConfig` weights) over the B·T frames; the MoE auxiliary term is 0
-  until the MoE head is ported (ROADMAP queue 1, item 16). The fused steps
+  (`JointConfig` weights) over the B·T frames, plus moe_aux_weight times
+  the MoE head's auxiliary loss when the model has one (0 otherwise,
+  reported as 'moe_aux'). The fused steps
   take the raw uint8 batches of `SequenceBatches(raw_mode=True)` and run
   /255, augmentation (one parameter set per window, from generators
   seeded by the batch's host 'aug_seeds'), target encoding, forward,
@@ -19,6 +20,14 @@ its configuration and returns `step(state, batch)`. A train step returns
 - Single-object tracker: binary cross-entropy ('bce') or Huber ('huber')
   of `TinyTracker(feats, det)` against the target, plus the heatmap
   accuracy for the heatmap head.
+
+The joint steps take the `mesh` the model was built with. Each rank of its
+data group then holds a share of the global batch (`parallel.shard_batch`)
+and the step keeps JAX's global-batch semantics: the loss normalisers are
+global counts, so each rank's loss is its share of the global loss; after
+backward the gradients are summed over the group (not averaged); the
+metrics are the global ones. BatchNorm statistics and the MoE routing
+span the group inside the model.
 
 A step moves the host batch to the model's device itself (non-blocking
 copies) and makes no host sync: its metrics stay 0-d device tensors, and
@@ -45,6 +54,8 @@ from object_tracking_tpu_torch.data.augment import (
 from object_tracking_tpu_torch.models.losses import (
     binary_crossentropy, heatmap_accuracy, yolo_loss)
 from object_tracking_tpu_torch.ops.targets import encode_targets_batch
+from object_tracking_tpu_torch.parallel.collectives import (
+    all_reduce_sum_, sum_gradients_)
 
 HOST_KEYS = ('aug_seeds',)      # read on the host: they seed generators
 
@@ -84,10 +95,14 @@ def _merge_time(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
+def _data_group(mesh):
+    return None if mesh is None else mesh.data_group
+
+
 def _yolo(netout, y_true, true_boxes, anchors, loss_cfg: LossConfig,
-          step: int):
+          step: int, group=None):
     return yolo_loss(
-        netout, y_true, true_boxes, anchors, step,
+        netout, y_true, true_boxes, anchors, step, group=group,
         warm_up_batches=loss_cfg.warm_up_batches,
         object_scale=loss_cfg.object_scale,
         no_object_scale=loss_cfg.no_object_scale,
@@ -96,87 +111,110 @@ def _yolo(netout, y_true, true_boxes, anchors, loss_cfg: LossConfig,
         best_iou_threshold=loss_cfg.best_iou_threshold)
 
 
-def _yolo_loss_bt(netout, batch, anchors, loss_cfg: LossConfig, step: int):
+def _yolo_loss_bt(netout, batch, anchors, loss_cfg: LossConfig, step: int,
+                  group=None):
     return _yolo(_merge_time(netout), _merge_time(batch['y_true']),
-                 _merge_time(batch['true_boxes']), anchors, loss_cfg, step)
+                 _merge_time(batch['true_boxes']), anchors, loss_cfg, step,
+                 group)
+
+
+# metrics that are sums of the ranks' shares (the recalls are global)
+_SHARED_METRICS = ('loss', 'track_loss', 'detect_loss', 'moe_aux',
+                   'loss_xy', 'loss_wh', 'loss_conf', 'loss_class')
 
 
 def _joint_loss(model, batch, anchors, loss_cfg: LossConfig,
-                joint_cfg: JointConfig, step: int, train: bool):
-    """(loss, metrics): the weighted joint loss and the JAX step's metrics
-    dict, every value a 0-d float32 device tensor."""
+                joint_cfg: JointConfig, step: int, train: bool, group=None):
+    """(loss, metrics): the weighted joint loss (with a data `group`, this
+    rank's share of the global loss) and the JAX step's metrics dict (the
+    global values), every value a 0-d float32 device tensor."""
     out = model(batch['images'], train=train)
     t_loss, t_aux = _yolo_loss_bt(out['track'], batch, anchors, loss_cfg,
-                                  step)
+                                  step, group)
     d_loss, d_aux = _yolo_loss_bt(out['detect'], batch, anchors, loss_cfg,
-                                  step)
+                                  step, group)
     wt, wd = joint_cfg.loss_weight_track, joint_cfg.loss_weight_detect
-    loss = wt * t_loss + wd * d_loss
+    moe_aux = out.get('moe_aux')
+    if moe_aux is None:
+        moe_aux = torch.zeros((), device=t_loss.device)
+    loss = wt * t_loss + wd * d_loss + joint_cfg.moe_aux_weight * moe_aux
     metrics = {'loss': loss, 'track_loss': t_loss, 'detect_loss': d_loss,
                'track_recall': t_aux['recall'],
-               'detect_recall': d_aux['recall'],
-               'moe_aux': torch.zeros((), device=loss.device)}
+               'detect_recall': d_aux['recall'], 'moe_aux': moe_aux}
     for comp in ('loss_xy', 'loss_wh', 'loss_conf', 'loss_class'):
         metrics[comp] = wt * t_aux[comp] + wd * d_aux[comp]
+    if group is not None:
+        shared = all_reduce_sum_(torch.stack(
+            [metrics[k].detach().float() for k in _SHARED_METRICS]), group)
+        metrics.update(zip(_SHARED_METRICS, shared))
     return loss, metrics
 
 
-def _optimize(state, loss_fn):
+def _optimize(state, loss_fn, group=None):
     """Forward (`loss_fn(model) -> (loss, metrics)`) in train() mode,
-    backward and one optimizer step."""
+    backward, the gradients summed over a data `group`, and one optimizer
+    step."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model)
     loss.backward()
+    sum_gradients_(list(state.model.parameters()), group)
     state.apply_gradients()
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
-def _train_on(state, batch, anchors, loss_cfg, joint_cfg):
+def _train_on(state, batch, anchors, loss_cfg, joint_cfg, group=None):
     """Forward, backward and one optimizer step on a device batch."""
     return _optimize(state, lambda model: _joint_loss(
-        model, batch, anchors, loss_cfg, joint_cfg, state.step, train=True))
+        model, batch, anchors, loss_cfg, joint_cfg, state.step, train=True,
+        group=group), group)
 
 
 @torch.no_grad()
-def _eval_on(state, batch, anchors, loss_cfg, joint_cfg, use_batch_stats):
+def _eval_on(state, batch, anchors, loss_cfg, joint_cfg, use_batch_stats,
+             group=None):
     state.model.eval()
     _, metrics = _joint_loss(state.model, batch, anchors, loss_cfg,
-                             joint_cfg, state.step, train=use_batch_stats)
+                             joint_cfg, state.step, train=use_batch_stats,
+                             group=group)
     return metrics
 
 
 def make_joint_train_step(anchors, loss_cfg: Optional[LossConfig] = None,
-                          joint_cfg: Optional[JointConfig] = None
-                          ) -> Callable:
+                          joint_cfg: Optional[JointConfig] = None,
+                          mesh=None) -> Callable:
     """Train step over prepared batches: {'images' (B,T,H,W,3) in [0, 1],
-    'y_true' (B,T,GH,GW,A,5+C), 'true_boxes' (B,T,1,1,1,TB,4)}."""
+    'y_true' (B,T,GH,GW,A,5+C), 'true_boxes' (B,T,1,1,1,TB,4)}; with a
+    `mesh`, this rank's share of the global batch."""
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
+    group = _data_group(mesh)
 
     def step(state, batch):
         device = _device(state.model)
         return _train_on(state, to_device(batch, device), anchors.on(device),
-                         loss_cfg, joint_cfg)
+                         loss_cfg, joint_cfg, group)
 
     return step
 
 
 def make_joint_eval_step(anchors, loss_cfg: Optional[LossConfig] = None,
                          joint_cfg: Optional[JointConfig] = None,
-                         use_batch_stats: bool = True) -> Callable:
+                         use_batch_stats: bool = True, mesh=None
+                         ) -> Callable:
     """Eval step over prepared batches. `use_batch_stats=True` (default)
     normalises with batch statistics, as the JAX eval step; False uses the
     running statistics. No running statistic is written."""
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
+    group = _data_group(mesh)
 
     def step(state, batch):
         device = _device(state.model)
         return _eval_on(state, to_device(batch, device), anchors.on(device),
-                        loss_cfg, joint_cfg, use_batch_stats)
+                        loss_cfg, joint_cfg, use_batch_stats, group)
 
     return step
 
@@ -210,13 +248,14 @@ def make_joint_train_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
                                 num_classes: int = 12,
                                 true_box_buffer: int = 50,
                                 aug_cfg: Optional[AugmentConfig] = None,
-                                augment: bool = True) -> Callable:
+                                augment: bool = True, mesh=None) -> Callable:
     """Joint train step over raw uint8 batches: normalise, augment,
     encode targets, forward, backward and Adam, all on the device."""
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     aug_cfg = aug_cfg or AugmentConfig()
     anchors = _Anchors(anchors)
+    group = _data_group(mesh)
     encode = _encoder(anchors, net_h, net_w, grid_h, grid_w, num_classes,
                       true_box_buffer)
 
@@ -225,7 +264,7 @@ def make_joint_train_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
         batch = _prepare_raw_joint_batch(to_device(raw, device), aug_cfg,
                                          encode, augment)
         return _train_on(state, batch, anchors.on(device), loss_cfg,
-                         joint_cfg)
+                         joint_cfg, group)
 
     return step
 
@@ -235,12 +274,14 @@ def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
                                grid_h: int = 13, grid_w: int = 13,
                                num_classes: int = 12,
                                true_box_buffer: int = 50,
-                               use_batch_stats: bool = True) -> Callable:
+                               use_batch_stats: bool = True,
+                               mesh=None) -> Callable:
     """Eval twin of make_joint_train_step_fused: raw uint8 batches,
     normalise and encode on the device, no augmentation."""
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
+    group = _data_group(mesh)
     encode = _encoder(anchors, net_h, net_w, grid_h, grid_w, num_classes,
                       true_box_buffer)
 
@@ -249,7 +290,7 @@ def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
         batch = _prepare_raw_joint_batch(to_device(raw, device), None,
                                          encode, augment=False)
         return _eval_on(state, batch, anchors.on(device), loss_cfg,
-                        joint_cfg, use_batch_stats)
+                        joint_cfg, use_batch_stats, group)
 
     return step
 

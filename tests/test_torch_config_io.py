@@ -3,9 +3,9 @@
 Mirrors tests/test_config.py on `object_tracking_tpu_torch.config`: the
 reference's legacy config.json layout, the new layout's round trip, and
 both read into the same values as JAX's `load_config` reads them (every
-field compared, exactly). Then the options the port reads but does not
-run yet: the trainer refuses `mesh.distributed` and `joint.pp_layers`
-(ROADMAP.md queue 1, item 16).
+field compared, exactly). Then the parallel options the config carries
+run through the flows: `mesh.distributed` (a world of one gloo rank in
+this process) and `joint.pp_layers`.
 """
 
 import dataclasses
@@ -17,6 +17,7 @@ from object_tracking_tpu.config import load_config as jload_config
 from object_tracking_tpu_torch import trainer
 from object_tracking_tpu_torch.config import (Config, JointConfig,
                                               MeshConfig, load_config)
+from torch_ranks import one_rank_world
 
 LEGACY = {
     "model_detector": {
@@ -151,34 +152,56 @@ def _small():
 
 
 @pytest.mark.parametrize('flow', ['joint', 'export', 'single'])
-def test_mesh_distributed_is_refused(tmp_path, flow):
-    """The port's Config has a real `mesh` now, so the refusal fires."""
+def test_mesh_distributed_is_refused(tmp_path, flow, monkeypatch):
+    """`mesh.distributed` runs: the training flows join the process group
+    the config names (here a world of this process alone) and lay out
+    its mesh; the export flow is one device's and joins none."""
+    import torch.distributed as dist
+    monkeypatch.setattr(trainer, '_synthetic_dirs', _one_video)
     cfg = _small()
-    cfg.mesh.distributed = True
-    with pytest.raises(NotImplementedError,
-                       match=r'mesh.distributed \(queue 1, item 16\)'):
+    with one_rank_world(cfg, tmp_path):
         if flow == 'joint':
-            trainer.simult_multi_obj_detection_tracking(
+            state = trainer.simult_multi_obj_detection_tracking(
                 cfg, synthetic=True, epochs=1, workdir=str(tmp_path),
                 image_size=64, device='cpu')
+            assert dist.get_world_size() == 1 and state.step > 0
         elif flow == 'export':
-            trainer.export_serving(cfg, out_path=str(tmp_path / 'a'),
-                                   device='cpu')
+            path = trainer.export_serving(cfg, out_path=str(tmp_path / 'a'),
+                                          device='cpu')
+            assert (tmp_path / 'a').is_file() and path.endswith('a')
+            assert not dist.is_initialized()
         else:
-            trainer.single_object_tracking(cfg, synthetic=True, epochs=1,
-                                           workdir=str(tmp_path),
-                                           device='cpu')
+            cfg.train.batch_size = 1
+            state = trainer.single_object_tracking(
+                cfg, synthetic=True, epochs=1, workdir=str(tmp_path),
+                device='cpu')
+            assert dist.get_world_size() == 1 and state.step > 0
 
 
-def test_pp_layers_is_refused(tmp_path):
+def test_pp_layers_is_refused(tmp_path, monkeypatch):
+    """`joint.pp_layers` pipelines the stacked layers over the mesh's
+    model axis, one layer per rank: in one process the model axis holds
+    one rank, so a 2-layer stack raises (as JAX's model does on one
+    device) and a 1-layer stack trains."""
+    monkeypatch.setattr(trainer, '_synthetic_dirs', _one_video)
     cfg = _small()
     cfg.joint.convlstm_layers = 3
     cfg.joint.pp_layers = True
-    assert trainer._not_ported(cfg) == ['joint.pp_layers (queue 1, item 16)']
-    with pytest.raises(NotImplementedError,
-                       match=r'pp_layers \(queue 1, item 16\)'):
+    with pytest.raises(ValueError, match="must equal the mesh 'model' "
+                       'axis size 1'):
         trainer.simult_multi_obj_detection_tracking(
             cfg, synthetic=True, epochs=1, workdir=str(tmp_path),
             image_size=64, device='cpu')
-    cfg.joint.pp_layers = False
-    assert trainer._not_ported(cfg) == []
+    cfg.joint.convlstm_layers = 2
+    (tmp_path / 'pp').mkdir()
+    state = trainer.simult_multi_obj_detection_tracking(
+        cfg, synthetic=True, epochs=1, workdir=str(tmp_path / 'pp'),
+        image_size=64, device='cpu')
+    assert state.model.tconv_stack.pipeline and state.step > 0
+
+
+_SYNTHETIC = trainer._synthetic_dirs
+
+
+def _one_video(cfg, size, labels, frames=5, videos=1, workdir=None):
+    return _SYNTHETIC(cfg, size, labels, frames=5, videos=1, workdir=workdir)

@@ -54,7 +54,11 @@ def test_package_has_the_slice_modules():
                    'training.callbacks', 'training.metrics',
                    'training.checkpoint', 'training.loop', 'trainer',
                    'ops.heatmap', 'models.fake_detector',
-                   'models.tiny_tracker', 'serving', 'data.converters'):
+                   'models.tiny_tracker', 'serving', 'data.converters',
+                   'models.moe_head', 'parallel', 'parallel.mesh',
+                   'parallel.collectives', 'parallel.context',
+                   'parallel.pipeline', 'parallel.expert', 'utils',
+                   'utils.profiling'):
         assert f'object_tracking_tpu_torch.{module}' in names
     from object_tracking_tpu_torch import trainer
     from object_tracking_tpu_torch.models.convlstm import StackedConvLSTM

@@ -203,9 +203,14 @@ def test_tracker_zero_state_and_later_options():
     assert c.shape == (3, 2, 2, 8) and not c.any() and not h.any()
     assert MultiObjDetTracker(remat=True, convlstm_features=8, width_div=8,
                               **SMALL).remat       # ported with training
-    for option in (dict(moe_experts=4), dict(time_shards=2)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            MultiObjDetTracker(**option)
+    moe = MultiObjDetTracker(moe_experts=4, moe_hidden=8,
+                             convlstm_features=8, width_div=8, **SMALL)
+    assert not hasattr(moe, 'tconv_2') and moe.tconv_moe.w1.shape[0] == 4
+    assert moe.zero_state(3, 2, 2)[0].shape == (3, 2, 2, 8)
+    sharded = MultiObjDetTracker(time_shards=2, convlstm_features=8,
+                                 width_div=8, **SMALL)   # built; runs with
+    with pytest.raises(ValueError, match='requires a mesh'):  # a mesh
+        sharded(torch.zeros(1, 2, 64, 64, 3))
     (c, h), (cs, hs) = MultiObjDetTracker(
         convlstm_layers=3, convlstm_features=8, width_div=8,
         **SMALL).zero_state(3, 2, 2)           # the deep head, ported

@@ -5,8 +5,8 @@ on the CPU (`device='cpu'`), mirroring tests/test_trainer.py.
 Small size, as tests/test_trainer.py: 64² frames (one synthetic video of 5
 frames), width_div=8, LSTM-16, 8² heatmaps, T=3, B=2, one epoch, then a
 resume from the checkpoint it wrote. Also: the prior-source dispatch and
-its feature-layer fallbacks, the residual+bce refusal, the options that
-wait for later items, and the default device.
+its feature-layer fallbacks, the residual+bce refusal, a multi-process
+config (a world of one rank), and the default device.
 """
 
 import json
@@ -198,24 +198,37 @@ def test_default_device_is_the_card(tmp_path, monkeypatch, flow):
 
 @pytest.mark.parametrize('flow', ['single', 'detect'])
 def test_multi_host_waits(tmp_path, flow):
+    """`mesh.distributed` no longer waits: the flow joins the configured
+    world (one gloo rank here), runs the whole batch on every rank, and
+    rank 0 writes the checkpoint."""
+    import torch.distributed as dist
+    from torch_ranks import one_rank_world
     cfg = tiny_cfg()
-    cfg.mesh = type('Mesh', (), {'distributed': True})()
-    waits = r'ROADMAP.*mesh.distributed \(queue 1, item 16\)'
-    with pytest.raises(NotImplementedError, match=waits):
-        if flow == 'single':
-            single(cfg, tmp_path)
-        else:
+    with one_rank_world(cfg, tmp_path):
+        state = single(cfg, tmp_path) if flow == 'single' else \
             detect(cfg, tmp_path)
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    assert state.step > 0
+    name = 'tiny_tracker' if flow == 'single' else 'yolov2'
+    assert saved(tmp_path, name) == ['ckpt_1.json', 'ckpt_1.pt']
 
 
 def test_not_ported_names_only_what_waits():
+    """Nothing waits: the refusal list is gone, and the joint options it
+    named build their model (the dense eval model without a mesh; with
+    a one-rank mesh the pipelined stack holds its single stage)."""
+    from object_tracking_tpu_torch.parallel import Mesh
+    assert not hasattr(trainer, '_not_ported')
     cfg = tiny_cfg()
-    assert trainer._not_ported(cfg) == []
     cfg.joint.moe_experts = 4
-    cfg.joint.convlstm_layers = 2            # the deep head, ported
+    cfg.joint.convlstm_layers = 2
     cfg.joint.pp_layers = True
-    assert trainer._not_ported(cfg, joint=False) == []
-    assert trainer._not_ported(cfg, 'trace') == [
-        'joint.moe_experts (queue 1, item 16)',
-        'joint.pp_layers (queue 1, item 16)',
-        'profile_dir (queue 1, item 16)']
+    cfg.joint.convlstm_features = 8
+    dense = trainer._joint_model(cfg, ('a', 'b'))
+    assert dense.tconv_moe.w1.shape[0] == 4
+    assert not dense.tconv_stack.pipeline
+    piped = trainer._joint_model(cfg, ('a', 'b'),
+                                 Mesh({'data': 1, 'model': 1}))
+    assert piped.tconv_stack.pipeline
+    for name, p in dense.state_dict().items():
+        assert torch.equal(piped.state_dict()[name], p), name

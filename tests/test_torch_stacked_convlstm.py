@@ -180,8 +180,20 @@ def test_to_flax_round_trip(rng):
 
 
 def test_pipeline_and_bfloat16():
-    with pytest.raises(NotImplementedError, match='item 16'):
+    from object_tracking_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match='requires a mesh'):
         StackedConvLSTM(F, 2, pipeline=True)
+    one = Mesh({'data': 1, 'model': 1})           # one process, one stage
+    with pytest.raises(ValueError, match='must equal the mesh'):
+        StackedConvLSTM(F, 2, pipeline=True, mesh=one)
+    torch.manual_seed(0)
+    dense = StackedConvLSTM(F, 1)
+    piped = StackedConvLSTM(F, 1, pipeline=True, mesh=one)
+    piped.load_state_dict(dense.state_dict())
+    x = torch.randn(2, 3, F, 3, 3)
+    torch.testing.assert_close(piped(x), dense(x), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match='final state'):
+        piped(x, return_state=True)
     model = StackedConvLSTM(F, 2, dtype=torch.bfloat16)
     y, (c, h) = model(torch.zeros(1, 2, F, 3, 3), return_state=True)
     assert y.dtype == c.dtype == h.dtype == torch.bfloat16

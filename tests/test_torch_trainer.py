@@ -4,10 +4,11 @@ minutes and is a slow-tier test).
 
 Small size: 64x64 synthetic frames, width_div=8, ConvLSTM-8, T=3, one
 epoch, then a resume; the fused path (the default) and the legacy host
-pipeline; the options that wait for later items; flax-like initialisation
+pipeline; the parallel and profiling options; flax-like initialisation
 and the darknet backbone with its head re-randomised.
 """
 
+import contextlib
 import json
 import os
 
@@ -80,17 +81,43 @@ def test_resume_lr_without_checkpoint_raises(tmp_path):
 
 @pytest.mark.parametrize('option', ['time_shards', 'moe_experts',
                                     'pp_layers', 'profile_dir', 'mesh'])
-def test_later_options_raise(tmp_path, option):
+def test_later_options_raise(tmp_path, option, monkeypatch):
+    """The options once refused run through the flow (one synthetic video
+    here). In one process the mesh's data axis holds one rank, so
+    time_shards=2 raises as JAX's model does on one device (its 2-rank
+    run is in test_torch_parallel_flows.py); pp_layers without a stacked
+    layer changes nothing, as in JAX."""
+    import torch.distributed as dist
+    from torch_ranks import one_rank_world
+    orig = trainer._synthetic_dirs
+    monkeypatch.setattr(
+        trainer, '_synthetic_dirs',
+        lambda cfg, size, labels, workdir=None: orig(
+            cfg, size, labels, frames=5, videos=1, workdir=workdir))
     cfg = small_config()
     kw = {}
+    if option == 'time_shards':
+        cfg.joint.time_shards = 2
+        cfg.joint.sequence_length = 4
+        with pytest.raises(ValueError, match="time_shards=2 must equal the "
+                           "mesh 'data' axis size 1"):
+            run(cfg, tmp_path)
+        return
     if option == 'profile_dir':
         kw['profile_dir'] = str(tmp_path / 'trace')
-    elif option == 'mesh':
-        cfg.mesh.distributed = True
-    else:
+    elif option != 'mesh':
         setattr(cfg.joint, option, 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run(cfg, tmp_path, **kw)
+    with (one_rank_world(cfg, tmp_path) if option == 'mesh'
+          else contextlib.nullcontext()):
+        state = run(cfg, tmp_path, **kw)
+        if option == 'mesh':
+            assert dist.get_world_size() == 1
+    assert state.step == 3                   # 5 frames, T=3: 3 windows
+    if option == 'moe_experts':
+        assert state.model.tconv_moe.w1.shape[0] == 2
+    if option == 'profile_dir':
+        assert any(f.endswith('.pt.trace.json')
+                   for f in os.listdir(tmp_path / 'trace'))
 
 
 def test_default_device_is_the_card(tmp_path, monkeypatch):

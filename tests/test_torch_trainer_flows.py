@@ -10,8 +10,8 @@
 - `track_video` over a frames directory and over a video file (cv2 is
   on this host; the card's machine has none).
 - `main`: `--help` lists the seven commands; `joint --synthetic
-  --epochs 1 --device cpu` trains from a config file; `--profile-dir` is
-  refused until profiling is ported.
+  --epochs 1 --device cpu` trains from a config file; `--profile-dir`
+  writes a profiler trace of the fit.
 
 Small: 64x64 frames, width_div=8, ConvLSTM-8, T=3, one thread.
 """
@@ -193,7 +193,21 @@ def _small_synthetic(cfg, size, labels, workdir):
 
 
 def test_main_refuses_profile_dir(tmp_path, monkeypatch):
+    """`joint --profile-dir` is no longer refused: the fit runs under
+    torch.profiler and its Chrome trace lands in the directory."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=r'profile_dir.*item 16'):
-        trainer.main(['--device', 'cpu', 'joint', '--synthetic',
-                      '--profile-dir', str(tmp_path / 'trace')])
+    (tmp_path / 'cfg.json').write_text(tiny_config().to_json())
+    monkeypatch.setattr(trainer, '_synthetic_dirs',
+                        lambda c, size, labels, workdir=None:
+                        _small_synthetic(c, size, labels, workdir))
+    trace = tmp_path / 'trace'
+    assert trainer.main(['--config', 'cfg.json', '--device', 'cpu', 'joint',
+                         '--synthetic', '--epochs', '1', '--image-size',
+                         '64', '--profile-dir', str(trace)]) == 0
+    files = [f for f in os.listdir(trace) if f.endswith('.pt.trace.json')]
+    assert len(files) == 1
+    with open(trace / files[0]) as f:
+        names = {e.get('name') for e in json.load(f)['traceEvents']}
+    assert 'aten::conv2d' in names
+
+

@@ -189,7 +189,7 @@ def test_fit_loop_end_to_end(tmp_path):
                 epochs=2, logger=logger, checkpoints=ckpts,
                 early_stopping=EarlyStopping(patience=5),
                 reduce_lr=ReduceLROnPlateau(patience=3), log_every_steps=1,
-                to_device=lambda b: moved.append(1) or b)
+                shard_fn=lambda b: moved.append(1) or b)
     assert final.step == 4 and float(final.model.seen) == 4
     assert len(moved) == 6                      # 4 train + 2 val batches
     assert ckpts.latest_step() == 2

@@ -1,0 +1,437 @@
+"""Multi-rank worlds of the port on the CPU, for the tests.
+
+`run_world(fn, n, tmp_path, *args)` spawns n processes, each a gloo rank
+of one world (a `file://` store under `tmp_path`, so that parallel test
+workers never race for a port), runs `fn(rank, n, *args)` in each and
+returns the n results, in rank order. Each rank sets one intra-op thread.
+A world that outlives its `timeout` is killed and fails the test; a rank
+that raises fails it with the rank's traceback.
+
+This module imports neither JAX nor the JAX package: the ranks import
+only the port, and hand numpy arrays back to the parent, which holds them
+against JAX. `one_rank_world` is a world of one in this process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import multiprocessing as mp
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def init_rank(rank: int, n: int, store: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group('gloo', init_method=f'file://{store}',
+                            world_size=n, rank=rank)
+
+
+def _entry(rank, n, store, out, fn, args):
+    try:
+        if store:
+            init_rank(rank, n, store)
+        else:
+            torch.set_num_threads(1)
+        result = fn(rank, n, *args)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(f'{out}.{rank}', 'wb') as f:
+            pickle.dump(('ok', result), f)
+    except BaseException:
+        with open(f'{out}.{rank}', 'wb') as f:
+            pickle.dump(('error', traceback.format_exc()), f)
+        raise
+
+
+def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0,
+              init: bool = True):
+    """[fn(rank, n, *args) for every rank] of an n-rank gloo world.
+    `init=False` leaves joining the world to `fn` (the flows' own
+    `distributed_init`), which gets the store's path as `args[0]`."""
+    ctx = mp.get_context('spawn')
+    base = os.path.join(str(tmp_path), f'world_{fn.__name__}_{n}')
+    store, out = base + '.store', base + '.out'
+    if not init:
+        args = (store,) + args
+    procs = [ctx.Process(target=_entry,
+                         args=(r, n, store if init else None, out, fn, args))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive:
+        raise TimeoutError(f'{fn.__name__}: {len(alive)} of {n} ranks still '
+                           f'running after {timeout} s: killed')
+    results = []
+    for r in range(n):
+        path = f'{out}.{r}'
+        if not os.path.exists(path):
+            raise RuntimeError(f'{fn.__name__}: rank {r} exited with code '
+                               f'{procs[r].exitcode} and no result')
+        with open(path, 'rb') as f:
+            kind, value = pickle.load(f)
+        if kind == 'error':
+            raise RuntimeError(f'{fn.__name__}: rank {r} failed:\n{value}')
+        results.append(value)
+    return results
+
+
+@contextlib.contextmanager
+def one_rank_world(cfg, tmp_path):
+    """`cfg.mesh` set to a distributed world of this process alone (gloo,
+    a `file://` store); the process group is destroyed afterwards."""
+    cfg.mesh.distributed = True
+    cfg.mesh.coordinator_address = f'file://{tmp_path}/one_rank.store'
+    cfg.mesh.num_processes = 1
+    cfg.mesh.process_id = 0
+    try:
+        yield cfg
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# --------------------------------------------------------------- workers
+# Each runs in every rank of a world and returns numpy arrays.
+
+def _np(x):
+    return x.detach().double().numpy()
+
+
+def _mesh(dp: int, mp: int):
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.parallel import make_mesh
+    return make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
+
+
+def _error(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ''
+
+
+def moe_world(rank, n, params, tokens, per):
+    """Expert parallelism over a model axis of n ranks (one expert each),
+    and data-group routing of one global token order over a data axis of
+    n ranks (contiguous shares, and two runs per rank)."""
+    from object_tracking_tpu_torch.parallel import (
+        expert_parallel_moe, moe_apply)
+    out = {}
+    ep_mesh = _mesh(1, n)
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in
+         params['ep'].items()}
+    mine = torch.from_numpy(tokens['ep'][rank * per:(rank + 1) * per])
+    mine.requires_grad_()
+    y = expert_parallel_moe(p, mine, ep_mesh, 'model', capacity_factor=1.25)
+    (y ** 2).sum().backward()
+    out['ep'] = _np(y)
+    out['ep_token_grad'] = _np(mine.grad)
+    out['ep_expert_grad'] = _np(p['w1'].grad[rank])
+    local = {k: (v if k == 'gate' else v[rank:rank + 1].detach())
+             for k, v in p.items()}
+    out['ep_local'] = _np(expert_parallel_moe(
+        local, mine.detach(), ep_mesh, 'model'))
+    wrong = {k: torch.from_numpy(v) for k, v in params['ep_wrong'].items()}
+    out['err_experts'] = _error(lambda: expert_parallel_moe(
+        wrong, mine.detach(), ep_mesh, 'model'))
+    ragged = mine.detach() if rank else torch.cat([mine.detach()] * 2)
+    out['err_ragged'] = _error(lambda: expert_parallel_moe(
+        {k: v.detach() for k, v in p.items()}, ragged, ep_mesh, 'model'))
+
+    data = _mesh(n, 1).data_group
+    for name, runs in (('share', 1), ('runs', 2)):
+        q = {k: torch.from_numpy(v).requires_grad_() for k, v in
+             params['dense'].items()}
+        glob = tokens['dense']
+        size = glob.shape[0] // (n * runs)
+        rows = [r * n * size + rank * size for r in range(runs)]
+        mine = torch.from_numpy(np.concatenate(
+            [glob[i:i + size] for i in rows]))
+        y, aux = moe_apply(q, mine, return_aux=True, group=data,
+                           segments=runs, capacity_factor=0.9)
+        ((y ** 2).sum() + aux).backward()
+        from object_tracking_tpu_torch.parallel.collectives import (
+            all_reduce_sum_, sum_gradients_)
+        sum_gradients_(list(q.values()), data)
+        out[name] = _np(y)
+        out[name + '_rows'] = np.concatenate(
+            [np.arange(i, i + size) for i in rows])
+        out[name + '_aux'] = float(all_reduce_sum_(aux.detach(), data))
+        out[name + '_grads'] = {k: _np(v.grad) for k, v in q.items()}
+    return out
+
+
+def _cell(c, x):
+    c = torch.tanh(c * 0.9 + x)
+    return c, 2.0 * c
+
+
+def _tree_cell(carry, x):
+    h = torch.tanh(carry['h'] + x)
+    c = carry['c'] * 0.5 + h
+    return {'h': h, 'c': c}, h + c
+
+
+def scan_world(rank, n, inputs):
+    """Context-parallel scans over a data axis of n ranks (exact ring, a
+    pytree carry, halo, the time-sharded ConvLSTM), pipelines over a model
+    axis of n ranks (stacked recurrence, GPipe, the pipelined ConvLSTM
+    stack), the mesh's layout and shard_batch."""
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.models.convlstm import (
+        FusedConvLSTM, StackedConvLSTM)
+    from object_tracking_tpu_torch.parallel import (
+        context_parallel_scan, gpipe, make_mesh, pipeline_scan, shard_batch)
+    from object_tracking_tpu_torch.parallel.collectives import (
+        sum_gradients_)
+    from object_tracking_tpu_torch.parallel.pipeline import (
+        gather_stages, stage_sharded_parameters)
+    from object_tracking_tpu_torch.training.state import (
+        clip_model_gradients_)
+    out = {}
+    data = _mesh(n, 1)
+
+    def block(a, per):
+        return torch.from_numpy(a[rank * per:(rank + 1) * per])
+
+    xs = block(inputs['exact'], 3).requires_grad_()
+    ys = context_parallel_scan(_cell, torch.zeros(4), xs, data, 'data')
+    (ys * block(inputs['exact_w'], 3)).sum().backward()
+    out['exact'], out['exact_grad'] = _np(ys), _np(xs.grad)
+    tree = {'h': torch.zeros(2), 'c': torch.zeros(2)}
+    out['tree'] = _np(context_parallel_scan(
+        _tree_cell, tree, block(inputs['tree'], 2), data, 'data'))
+    out['halo'] = _np(context_parallel_scan(
+        _cell, torch.zeros(4), block(inputs['halo'], 4), data, 'data',
+        halo=2))
+    ragged = block(inputs['exact'], 3)[:2 if rank else 3]
+    out['err_ragged'] = _error(lambda: context_parallel_scan(
+        _cell, torch.zeros(4), ragged, data, 'data'))
+
+    # the time-sharded ConvLSTM against the dense layer (same weights)
+    x = torch.from_numpy(inputs['lstm_x'])
+    w = torch.from_numpy(inputs['lstm_w'])
+    per = x.shape[1] // n
+    mine = slice(rank * per, (rank + 1) * per)
+    for name, shards, mesh in (('dense', 1, None), ('sp', n, data)):
+        torch.manual_seed(0)
+        layer = FusedConvLSTM(x.shape[2], 4, time_shards=shards, mesh=mesh)
+        xin = (x if shards == 1 else x[:, mine]).clone().requires_grad_()
+        h = layer(xin)
+        target = w if shards == 1 else w[:, mine]
+        (h * target).sum().backward()
+        if shards > 1:
+            sum_gradients_(list(layer.parameters()), data.data_group)
+        out[f'lstm_{name}'] = _np(h)
+        out[f'lstm_{name}_xgrad'] = _np(xin.grad)
+        out[f'lstm_{name}_grads'] = {k: _np(p.grad)
+                                     for k, p in layer.named_parameters()}
+    out['lstm_slice'] = (rank * per, (rank + 1) * per)
+
+    pipe = _mesh(1, n)
+    p = {k: torch.from_numpy(v) for k, v in inputs['stack'].items()}
+
+    def stage(params, carry, x):
+        carry = torch.tanh(carry @ params['u'] + x @ params['w'])
+        return carry, carry + x * 0.1
+    out['stack'] = _np(pipeline_scan(
+        stage, p, torch.from_numpy(inputs['stack_x']), pipe, 'model',
+        carry_init=torch.zeros(n, 4)))
+    g = {k: torch.from_numpy(v) for k, v in inputs['gpipe'].items()}
+    out['gpipe'] = _np(gpipe(lambda q, x: torch.tanh(x @ q['w'] + q['b']),
+                             g, torch.from_numpy(inputs['gpipe_x']), pipe,
+                             'model'))
+    out['err_shape'] = _error(lambda: gpipe(
+        lambda q, x: x @ q['w'], {'w': torch.zeros(n, 4, 5)},
+        torch.zeros(3, 4), pipe, 'model'))
+    out['err_stages'] = _error(lambda: gpipe(
+        lambda q, x: x @ q['w'], {'w': torch.zeros(n + 1, 4, 4)},
+        torch.zeros(3, 4), pipe, 'model'))
+
+    # the pipelined ConvLSTM stack against the dense stack (same seed)
+    x = torch.from_numpy(inputs['stacked_x'])
+    w = torch.from_numpy(inputs['stacked_w'])
+    for name, kw in (('dense', {}), ('pp', dict(pipeline=True, mesh=pipe))):
+        torch.manual_seed(1)
+        layer = StackedConvLSTM(4, n, **kw)
+        xin = x.clone().requires_grad_()
+        h = layer(xin)
+        (h * w).sum().backward()
+        staged = stage_sharded_parameters(layer)
+        out[f'stacked_{name}'] = _np(h)
+        out[f'stacked_{name}_xgrad'] = _np(xin.grad)
+        out[f'stacked_{name}_unclipped'] = {
+            k: _np(v) for k, v in gather_stages(
+                {k: p.grad.clone() for k, p in layer.named_parameters()},
+                staged).items()}
+        out[f'stacked_{name}_norm'] = float(clip_model_gradients_(layer,
+                                                                  0.5))
+        out[f'stacked_{name}_weights'] = {
+            k: _np(v) for k, v in gather_stages(
+                {k: p.detach() for k, p in layer.named_parameters()},
+                staged).items()}
+        out[f'stacked_{name}_grads'] = {
+            k: _np(v) for k, v in gather_stages(
+                {k: p.grad for k, p in layer.named_parameters()},
+                staged).items()}
+        out[f'stacked_{name}_held'] = [tuple(q.shape)
+                                       for q in layer.parameters()]
+
+    # the mesh's layout and this rank's slice of a global batch
+    grid = make_mesh(MeshConfig(model_parallel=2 if n % 2 == 0 else 1))
+    out['layout'] = (dict(grid.shape), grid.index('data'),
+                     grid.index('model'))
+    batch = {'x': np.arange(2 * n * 3).reshape(2 * n, 3), 'y': np.arange(n)}
+    out['shard'] = shard_batch(data, batch)
+    out['shard_t'] = shard_batch(data, {'x': np.zeros((2, 2 * n, 5))},
+                                 axis=1)['x'].shape
+    out['ragged'] = shard_batch(data, {'x': np.zeros((n + 1, 3))})['x'].shape
+    out['err_mesh'] = _error(lambda: make_mesh(
+        MeshConfig(data_parallel=n, model_parallel=2)))
+    return out
+
+
+SMALL = dict(num_classes=2, num_anchors=2, convlstm_features=8, width_div=8)
+ENC = dict(net_h=64, net_w=64, grid_h=2, grid_w=2, num_classes=2,
+           true_box_buffer=5)
+ANCHORS = np.array([1.0, 1.0, 2.5, 2.0], np.float32)
+
+
+def joint_state(weights, mesh=None, lr=1e-3, **kw):
+    """The small joint model with `weights` (a numpy state dict) and Adam;
+    built from the seed first, as the flows build it."""
+    from object_tracking_tpu_torch.models import MultiObjDetTracker
+    from object_tracking_tpu_torch.training import TrainState, make_optimizer
+    model = MultiObjDetTracker(**SMALL, mesh=mesh, **kw)
+    staged = {}
+    if mesh is not None:
+        from object_tracking_tpu_torch.parallel.pipeline import (
+            local_stage, stage_sharded_parameters)
+        staged = stage_sharded_parameters(model)
+    model.load_state_dict(local_stage(
+        {k: torch.from_numpy(v) for k, v in weights.items()}, staged)
+        if staged else {k: torch.from_numpy(v) for k, v in weights.items()})
+    return TrainState.create(model, make_optimizer(lr))
+
+
+def two_steps(state, raw, mesh=None, axis=0, ckpt=None):
+    """Two fused train steps (no augmentation) on this rank's slice of the
+    raw global batch: the metrics of each, the gradients of the first and
+    the dense parameters after both (stage slices gathered)."""
+    from object_tracking_tpu_torch.parallel import shard_batch
+    from object_tracking_tpu_torch.parallel.pipeline import (
+        gather_stages, stage_sharded_parameters)
+    from object_tracking_tpu_torch.training import (
+        CheckpointManager, make_joint_train_step_fused)
+    step = make_joint_train_step_fused(ANCHORS, augment=False, mesh=mesh,
+                                       **ENC)
+    mine = raw if mesh is None else shard_batch(mesh, raw, axis=axis)
+    staged = stage_sharded_parameters(state.model)
+    out = {'metrics': []}
+    for i in range(2):
+        state, metrics = step(state, mine)
+        out['metrics'].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out['grads'] = {k: _np(v) for k, v in gather_stages(
+                {k: p.grad for k, p in state.model.named_parameters()},
+                staged).items()}
+    out['params'] = {k: _np(v) for k, v in gather_stages(
+        {k: p.detach() for k, p in state.model.named_parameters()},
+        staged).items()}
+    if ckpt is not None:
+        CheckpointManager(ckpt).save(state.step, state)
+    return out
+
+
+def train_world(rank, n, inputs, ckpt):
+    """The joint train step over 2 ranks: data parallel (dense and MoE
+    heads), the two naive per-rank semantics, sequence parallel (dense
+    and MoE), and the pipelined stack (with a checkpoint)."""
+    from object_tracking_tpu_torch.config import JointConfig, LossConfig
+    from object_tracking_tpu_torch.parallel import shard_batch
+    from object_tracking_tpu_torch.training.steps import (
+        _joint_loss, _prepare_raw_joint_batch, _encoder, _Anchors,
+        to_device)
+    out = {}
+    dp = _mesh(n, 1)
+    raw, raw_t = inputs['raw'], inputs['raw_t']
+    out['dp'] = two_steps(joint_state(inputs['dense'], dp), raw, dp)
+    out['moe'] = two_steps(joint_state(inputs['moe'], dp, moe_experts=2,
+                                       moe_hidden=8), raw, dp)
+    out['sp'] = two_steps(joint_state(inputs['dense'], dp, time_shards=n),
+                          raw_t, dp, axis=1)
+    out['sp_moe'] = two_steps(joint_state(inputs['moe'], dp, time_shards=n,
+                                          moe_experts=2, moe_hidden=8),
+                              raw_t, dp, axis=1)
+    pp = _mesh(1, n)
+    out['pp'] = two_steps(joint_state(inputs['deep'], pp,
+                                      convlstm_layers=n + 1,
+                                      pp_layers=True), raw, pp, ckpt=ckpt)
+
+    # the naive semantics: per-rank BatchNorm statistics (a model without
+    # the mesh) with the global loss; or global statistics with a loss
+    # normalised on this rank's boxes alone, averaged over the ranks
+    encode = _encoder(_Anchors(ANCHORS), 64, 64, 2, 2, 2, 5)
+    mine = _prepare_raw_joint_batch(
+        to_device(shard_batch(dp, raw), 'cpu'), None, encode, False)
+    anchors = torch.from_numpy(ANCHORS)
+    for name, mesh, group in (('bn_local', None, dp.data_group),
+                              ('loss_mean', dp, None)):
+        state = joint_state(inputs['dense'], mesh)
+        state.model.train()
+        _, metrics = _joint_loss(state.model, mine, anchors, LossConfig(),
+                                 JointConfig(), 0, True, group=group)
+        out[name] = float(metrics['loss'].detach())
+    return out
+
+
+def tiny_joint_config(size: int = 64):
+    """The joint flow's small config (tests/test_trainer_e2e.py's)."""
+    from object_tracking_tpu_torch.config import Config
+    cfg = Config()
+    cfg.detector.image_h = cfg.detector.image_w = size
+    cfg.detector.grid_h = cfg.detector.grid_w = size // 32
+    cfg.detector.width_div = 8
+    cfg.joint.labels = ('1', '2')
+    cfg.joint.convlstm_features = 8
+    cfg.joint.batch_size = 2
+    cfg.train.max_epochs = 1
+    cfg.train.log_every_steps = 1
+    return cfg
+
+
+def flow_world(rank, n, store, workdir, joint):
+    """The joint flow on every rank of an n-rank world that the flow joins
+    itself (`mesh.distributed`, a file:// rendezvous): `joint` sets the
+    JointConfig fields and the data axis takes every rank."""
+    import torch.distributed as dist
+    from object_tracking_tpu_torch import trainer
+    cfg = tiny_joint_config()
+    for k, v in joint.items():
+        setattr(cfg.joint, k, v)
+    cfg.mesh.distributed = True
+    cfg.mesh.coordinator_address = f'file://{store}'
+    cfg.mesh.num_processes = n
+    cfg.mesh.process_id = rank
+    cfg.mesh.data_parallel = n
+    state = trainer.simult_multi_obj_detection_tracking(
+        cfg, synthetic=True, workdir=workdir, device='cpu')
+    return {'world': dist.get_world_size(), 'step': state.step,
+            'held': {k: tuple(p.shape)
+                     for k, p in state.model.named_parameters()},
+            'params': {k: _np(p) for k, p in
+                       state.model.named_parameters()}}
