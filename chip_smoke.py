@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, detector, training, single-object,
-deep-head and exported-serving paths on one NVIDIA GPU and check them.
+deep-head, exported-serving, parallel, native-data and tensor-parallel
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -114,10 +115,48 @@ JSON line:
    artifact is reloaded by a fresh interpreter that never imports the
    port's models and serves the same. A deep-head artifact at the reduced
    cut round-trips its 4-leaf state. Frames/s served and through
-   JointPredictor at B=1 and B=8 in float32 (median of three samples,
+   JointPredictor at B=1 and B=8 in float32 (median of two samples,
    all kept);
-13. the kernels line (each kernel's launches on the driven paths, error,
-   times and bound), the nvidia-smi line, and last
+13. parallel: the MoE head (moe_experts=4, moe_hidden=256) at bench.py's
+   model: three B=8 and three B=1 predict calls beside the dense head
+   (kernel 1 once per call, identical to nms_impl='sort'), the head's
+   device time and frames/s (median of two samples, all kept); the MoE
+   fused step at B=4 beside the dense one; the MoE step on the card
+   against the CPU at the reduced cut; a world of one NCCL rank (tcp to
+   localhost): the data-parallel step against the plain step,
+   expert_parallel_moe with one expert and a one-stage pipeline against
+   the dense forms; and a profile_trace of two reduced-cut steps holding
+   CUDA kernel events and both annotated ranges;
+14. native_data: the native data runtime's binding (data/native_loader.py)
+   builds its library from native/ott_dataio.cpp with g++ into
+   build/native/ (build seconds), or the phase reports the compiler's
+   words and checks nothing more (the library needs libjpeg and libpng).
+   Where it builds: the four golden scenes decoded by load_batch_u8 at
+   160² against golden_scenes_160.npz (cv2's decode; mean |diff| < 0.02),
+   load_batch equal to load_image per file, CfgDetector on the micro
+   fixture detecting the natively decoded scenes as golden_boxes.json
+   pins them (mAP@0.5; kernel 1 once), and the host NMS equal to kernel 1
+   and its plain twin on seeded candidates at (32, 128, 12);
+15. tensor_parallel: two spawned ranks, both on cuda:0, in a gloo world
+   (NCCL refuses two ranks on one device; gloo takes the CUDA tensors of
+   all_reduce and all_gather itself), mesh dp x tp = 1 x 2. At the train
+   phase's reduced cut (width_div=8, 128², T=4, B=2, no augmentation,
+   min_params 1 << 8) two fused steps under tensor parallelism against the
+   dense step on the card from the same weights and batch: the first
+   step's metrics (rtol 1e-4), every gathered gradient and parameter
+   (relative L2 <= 1e-3), the two-step update (cosine >= 0.999, norm ratio
+   within 5 %, loss within 1e-2), tp_sharding_summary, and each rank's
+   parameter bytes against the dense model's; every sharded leaf is held
+   as 1/2 of its planned axis. Then, in the same world at full width,
+   tconv_lstm's input projection through the port's conv, sharded by
+   shard_variables (each rank holds 1024 of the 2048 output channels,
+   computes them and gathers the rest) against the same conv dense (max
+   |diff| <= 1e-4 of the output's scale on every rank; both timed, host
+   clock). Then the gathered TP-trained weights serve three
+   predict_window calls through JointPredictor: kernel 1 once per call,
+   identical to nms_impl='sort';
+16. each phase's seconds, the kernels line (each kernel's launches on the
+   driven paths, error, times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -552,12 +591,21 @@ def check_results(frames, obj_threshold) -> dict:
             'track_ids': len({d['track_id'] for f in frames for d in f})}
 
 
-def fps(pred, clips, iters: int, batch_call: bool) -> list:
+def fps(pred, clips, iters: int, batch_call: bool, samples: int = 3
+        ) -> list:
     """Frames/s samples of the public call, host clock; every call ends
     with its results on the host, so it is synchronised."""
     call = pred.predict_batch if batch_call else (
         lambda c: pred.predict_window(c[0]))
-    return rate(lambda: call(clips), clips.shape[0] * clips.shape[1], iters)
+    return rate(lambda: call(clips), clips.shape[0] * clips.shape[1], iters,
+                samples)
+
+
+# The serve and parallel phases' frames/s readings take two samples, not
+# three, to keep the script near 600 s of command time since the
+# native_data and tensor_parallel phases joined it; the path phase's
+# keep three
+SHORT_SAMPLES = 2
 
 
 def rate(call, items: int, iters: int, samples: int = 3) -> list:
@@ -1211,16 +1259,18 @@ def train_phase(device, smi: str):
             'readings': readings, 'serve': serve_out, 'card': smi}, weights
 
 
-def serve_trained(model, device) -> dict:
+def serve_trained(model, device, net: int = 0) -> dict:
     """Train → serve: the trained model in JointPredictor, three
-    predict_window calls; kernel 1 launches once per call, and
-    nms_impl='sort' gives identical detections and ids."""
+    predict_window calls on net² frames (`net` 0 is NET); kernel 1
+    launches once per call, and nms_impl='sort' gives identical
+    detections and ids."""
+    net = net or NET
     model.eval()
-    clips = [train_batch(20 + i, 1)['images_u8'].astype(np.float32) / 255.0
-             for i in range(3)]
+    clips = [train_batch(20 + i, 1, net=net)['images_u8'].astype(np.float32)
+             / 255.0 for i in range(3)]
     obj_threshold = pick_obj_threshold(model, np.concatenate(clips), device)
     kwargs = dict(labels=LABELS_MOT17, obj_threshold=obj_threshold,
-                  nms_threshold=NMS_THRESHOLD, net_size=(NET, NET),
+                  nms_threshold=NMS_THRESHOLD, net_size=(net, net),
                   device=device)
     torch.backends.cudnn.deterministic = True
     try:
@@ -1798,10 +1848,11 @@ def serve_phase(device, smi: str, weights: dict) -> dict:
                     again, got)
             put_rate(rates, f'fps_served_b{batch}_float32', rate(
                 lambda s=served, c=reqs[batch][0]: s.predict_window(c),
-                batch * T, 5 if batch > 1 else 10))
+                batch * T, 5 if batch > 1 else 10, SHORT_SAMPLES))
             put_rate(rates, f'fps_joint_predictor_b{batch}_float32', rate(
                 lambda c=as_served(reqs[batch][0], device):
-                pred.predict_batch(c), batch * T, 5 if batch > 1 else 10))
+                pred.predict_batch(c), batch * T, 5 if batch > 1 else 10,
+                SHORT_SAMPLES))
             out[f'b{batch}'] = entry
             del art, served, pred
             gc.collect()
@@ -1918,8 +1969,8 @@ def moe_predict(device) -> dict:
     """The MoE head at bench.py's model: three B=8 predict_batch and three
     B=1 predict_window calls, kernel 1 once per call and equal to
     nms_impl='sort'; frames/s at B=1 and B=8 beside the dense head's in
-    this process (median of three samples, all kept); each call's device
-    time and the MoE head's share of it."""
+    this process (median of SHORT_SAMPLES samples, all kept); each call's
+    device time and the MoE head's share of it."""
     model = joint_model(device, **MOE)
     rng = np.random.RandomState(3)
     batch_reqs = requests(rng, 8, 3)
@@ -1955,7 +2006,7 @@ def moe_predict(device) -> dict:
             key = f'{head}_b{batch}_float32'
             median = put_rate(rates, f'fps_{key}',
                               fps(pred, clips, 5 if batch > 1 else 10,
-                                  batch > 1))
+                                  batch > 1, SHORT_SAMPLES))
             call = (lambda c=clips, p=pred: p.predict_batch(c)) \
                 if batch > 1 else \
                 (lambda c=clips, p=pred: p.predict_window(c[0]))
@@ -2174,6 +2225,374 @@ def parallel_phase(device, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ native data
+NATIVE_SCENES = tuple(FIXTURES / f'scene_{i}.jpg' for i in range(4))
+NATIVE_MEAN_TOL = 0.02   # tests/test_native_loader.py's JPEG bound: mean
+#                          |native − cv2| in [0, 1] (the IDCTs differ)
+NATIVE_NMS_TOL = 1e-6    # tests/test_native_loader.py's, against the op
+
+
+def native_data_phase(device, smi: str) -> dict:
+    """The native data runtime's binding (data/native_loader.py): its
+    build seconds, or the compiler's words where it cannot build. Where it
+    builds: the four golden scenes decoded by load_batch_u8 at 160²
+    against golden_scenes_160.npz (cv2's decode of the same files);
+    load_batch equal to load_image per file; CfgDetector on the micro
+    fixture detecting the natively decoded scenes as golden_boxes.json
+    pins them, with mAP@0.5 (kernel 1 once); the host NMS against kernel
+    1 and against its plain twin on seeded candidates at the joint path's
+    shape (32, 128, 12)."""
+    from object_tracking_tpu_torch.data import native_loader
+    start = time.perf_counter()
+    available = native_loader.available()
+    out = {'phase': 'native_data', 'available': available,
+           'build_s': time.perf_counter() - start, 'card': smi}
+    if not available:
+        out['build_error'] = native_loader.build_error
+        return out
+    out['library'] = native_loader.library_path().name
+    files = [str(f) for f in NATIVE_SCENES]
+    scenes = np.load(FIXTURES / 'golden_scenes_160.npz')
+    if [str(f) for f in scenes['files']] != [f.name for f in NATIVE_SCENES]:
+        raise AssertionError('golden scenes out of order')
+    u8 = native_loader.load_batch_u8(files, 160, 160, n_threads=2)
+    diff = np.abs(u8.astype(np.float32)
+                  - scenes['images'].astype(np.float32)) / 255.0
+    out['decode_vs_cv2'] = {'mean_abs_diff': float(diff.mean()),
+                            'max_abs_diff': float(diff.max()),
+                            'tolerance_mean': NATIVE_MEAN_TOL}
+    if diff.mean() >= NATIVE_MEAN_TOL:
+        raise AssertionError(f'native decode vs cv2: {out["decode_vs_cv2"]}')
+    images = native_loader.load_batch(files, 160, 160, n_threads=2)
+    if not np.array_equal(images, np.stack(
+            [native_loader.load_image(f, 160, 160) for f in files])):
+        raise AssertionError('load_batch differs from load_image')
+    out['load_batch_equals_load_image'] = True
+
+    golden = json.loads((FIXTURES / 'golden_boxes.json').read_text())
+    detector = CfgDetector(str(FIXTURES / golden['cfg']),
+                           weights_path=str(FIXTURES / golden['weights']),
+                           labels=tuple(golden['labels']), device=device)
+    cuda_nms.nms_scores.launches = 0
+    dets = detector.detect_images(images)
+    launches = cuda_nms.nms_scores.launches
+    if launches != 1:
+        raise AssertionError(f'nms_scores launched {launches} times in 1 '
+                             'detect_images call')
+    out['cfg_detector'] = {**check_golden('CfgDetector', dets, golden, 160,
+                                          0.0), 'nms_launches': launches}
+
+    frames, k, c = NMS_PATH_SHAPES[0]
+    boxes, scores = candidates(np.random.RandomState(11), frames, k, c)
+    host = np.stack([native_loader.nms_scores(boxes[f], scores[f],
+                                              NMS_THRESHOLD)
+                     for f in range(frames)])
+    b, sc = torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(
+        device)
+    kernel = cuda_nms.nms_scores(b, sc, NMS_THRESHOLD).cpu().numpy()
+    plain = cuda_nms.nms_scores_plain(b, sc, NMS_THRESHOLD).cpu().numpy()
+    out['host_nms'] = {
+        'shape': [frames, k, c],
+        'vs_kernel_max_abs_diff': float(np.abs(host - kernel).max()),
+        'vs_plain_max_abs_diff': float(np.abs(host - plain).max()),
+        'suppressed': int(((scores > 0) & (host == 0)).sum()),
+        'tolerance': NATIVE_NMS_TOL}
+    if (out['host_nms']['vs_kernel_max_abs_diff'] > NATIVE_NMS_TOL
+            or out['host_nms']['vs_plain_max_abs_diff'] > NATIVE_NMS_TOL
+            or not out['host_nms']['suppressed']):
+        raise AssertionError(f'host NMS: {out["host_nms"]}')
+    return out
+
+
+# ------------------------------------------------------ tensor parallelism
+TP_RANKS = 2             # both on cuda:0: NCCL refuses two ranks a device
+TP_NET = 128             # the train phase's reduced cut
+TP_MIN_PARAMS = 1 << 8   # the dry run's
+TP_TIMEOUT_S = 300
+TP_COS, TP_RATIO, TP_LOSS = 0.999, 0.05, 1e-2   # the dry run's bars
+COLUMN_TOL = 1e-4        # column-parallel conv: max |blocks − dense| over
+#                          max |dense| (a wrong block is O(1) off)
+
+
+def _tp_model(mesh=None):
+    return MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
+                              convlstm_features=64, width_div=8, mesh=mesh)
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _two_steps(state, step, raw, model, gather) -> dict:
+    """Two fused steps: both steps' metrics, the first's gradients and
+    parameters, the second's state, all dense (through `gather`) and on
+    the host."""
+    def host(tensors):
+        return {k: v.detach().to('cpu', copy=True) for k, v in
+                tensors.items()}
+    out = {'metrics': []}
+    for i in range(2):
+        state, metrics = step(state, raw)
+        out['metrics'].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out['grads'] = host(gather(model, {
+                k: p.grad for k, p in model.named_parameters()}))
+            out['step1'] = host(gather(model))
+    out['step2'] = host(gather(model))
+    return out
+
+
+def tp_rank(rank: int, n: int, out_dir: str, device: str) -> None:
+    """One rank of the tensor_parallel phase's gloo world, on `device`
+    (cuda:0 for every rank): the reduced joint model, from the weights and
+    batch in out_dir, sharded over a (1, n) mesh, two fused steps. Every
+    rank writes what it holds (rank 0 its run too) to out_dir, or its
+    traceback."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.parallel import (
+        gather_dense, make_mesh, shard_variables)
+    entered = time.time()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device)
+        with open(Path(out_dir) / 'inputs.pkl', 'rb') as f:
+            weights, raw = pickle.load(f)
+        dist.init_process_group('gloo',
+                                init_method=f'file://{out_dir}/store',
+                                world_size=n, rank=rank)
+        mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=n))
+        model = _tp_model(mesh)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in weights.items()})
+        model.to(device)
+        dense_bytes = _param_bytes(model)
+        shard_variables(mesh, model, min_params=TP_MIN_PARAMS)
+        state = TrainState.create(model, make_optimizer(TRAIN_LR))
+        step = make_joint_train_step_fused(
+            YOLOV2_ANCHORS, augment=False, net_h=TP_NET, net_w=TP_NET,
+            grid_h=TP_NET // 32, grid_w=TP_NET // 32,
+            num_classes=NUM_CLASSES, true_box_buffer=MAX_BOXES, mesh=mesh)
+        ready = time.time()
+        run = _two_steps(state, step, raw, model, gather_dense)
+        steps_s = time.time() - ready
+        column = column_conv_rank(mesh, rank, device)
+        result = {'bytes': _param_bytes(model),
+                  'entered_at': entered, 'setup_s': ready - entered,
+                  'steps_s': steps_s, 'column_conv': column,
+                  'dense_bytes': dense_bytes,
+                  'held': {k: tuple(p.shape)
+                           for k, p in model.named_parameters()},
+                  'run': run if rank == 0 else None}
+        dist.destroy_process_group()
+        kind = 'ok'
+    except BaseException:
+        result, kind = traceback.format_exc(), 'error'
+    with open(Path(out_dir) / f'rank{rank}.pkl', 'wb') as f:
+        pickle.dump((kind, result), f)
+
+
+def tp_world(weights: dict, raw: dict, device) -> list:
+    """tp_rank on TP_RANKS spawned processes; every process is joined (or
+    killed at TP_TIMEOUT_S) before this returns or raises. The inputs go
+    through a file: a large argument would hold each start until the
+    previous child had imported this script and read it."""
+    import pickle
+    ctx = torch.multiprocessing.get_context('spawn')
+    started = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(Path(tmp) / 'inputs.pkl', 'wb') as f:
+            pickle.dump((weights, raw), f)
+        procs = [ctx.Process(target=tp_rank,
+                             args=(r, TP_RANKS, tmp, str(device)))
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        if alive:
+            raise AssertionError(f'tensor_parallel: {len(alive)} ranks still '
+                                 f'running after {TP_TIMEOUT_S} s: killed')
+        results = []
+        for r in range(TP_RANKS):
+            path = Path(tmp) / f'rank{r}.pkl'
+            if not path.exists():
+                raise AssertionError(f'tensor_parallel: rank {r} exited with '
+                                     f'{procs[r].exitcode} and no result')
+            with open(path, 'rb') as f:
+                kind, value = pickle.load(f)
+            if kind != 'ok':
+                raise AssertionError(f'tensor_parallel rank {r}:\n{value}')
+            value['started_s'] = value.pop('entered_at') - started
+            results.append(value)
+    return results
+
+
+def _update(params: dict, weights: dict) -> torch.Tensor:
+    return torch.cat([(params[k].double() - weights[k].double()).reshape(-1)
+                      for k in sorted(params)])
+
+
+def host_ms(fn, iters: int) -> float:
+    """ms a call of fn(), host clock, synchronised at both ends, after 2
+    warm-up calls (a path through gloo waits on the host)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - start) / iters
+
+
+def column_conv_rank(mesh, rank: int, device) -> dict:
+    """tconv_lstm's input projection at full width (85 + 1024 → 2048
+    channels, 3x3) on the joint path's B·T = 32 frames of 13x13, run by
+    the port's conv (`models.darknet19.conv`) dense, then sharded by
+    `shard_variables` over the model axis, where it computes this rank's
+    block of output channels and gathers the rest. The dense call is
+    timed on rank 0 alone (the other rank waits), the sharded one with
+    every rank taking part; host clock."""
+    import torch.distributed as dist
+    from object_tracking_tpu_torch.models.convlstm import FusedConvLSTM
+    from object_tracking_tpu_torch.models.darknet19 import conv
+    from object_tracking_tpu_torch.parallel import shard_variables
+    cin = 5 * (5 + NUM_CLASSES) + 1024
+    lstm = init_like_flax(FusedConvLSTM(cin, 512), 3).to(device)
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (8 * T, cin, 13, 13)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        dense = conv(x, lstm.input_proj)
+        dense_ms = host_ms(lambda: conv(x, lstm.input_proj), 20) \
+            if rank == 0 else None
+        dist.barrier()
+        shard_variables(mesh, lstm)
+        got = conv(x, lstm.input_proj)
+        torch.cuda.synchronize()
+        out = {'x': list(x.shape),
+               'weight_held': list(lstm.input_proj.weight.shape),
+               'bias_held': list(lstm.input_proj.bias.shape),
+               'max_abs_diff': float((got - dense).abs().max()),
+               'scale': float(dense.abs().max()),
+               'dense_ms': dense_ms,
+               'blocks_ms': host_ms(lambda: conv(x, lstm.input_proj), 20)}
+    return out
+
+
+def tensor_parallel_phase(device, smi: str) -> dict:
+    """The fused joint step under dp x tp = 1 x 2 on the card (two gloo
+    ranks on cuda:0) against the dense step on the card, at the train
+    phase's reduced cut (width_div=8, 128², T=4, B=2, no augmentation,
+    min_params 1 << 8, the same weights and batch): the first step's
+    metrics, every gathered gradient and parameter (relative L2), the
+    two-step update (cosine, norm ratio, loss: the dry run's bars), the
+    plan's summary, each rank's parameter bytes against the dense model's.
+    In the same world, one full-width conv sharded by column against the
+    dense conv; then the gathered TP-trained weights served through
+    JointPredictor."""
+    from object_tracking_tpu_torch.parallel import (
+        Mesh, plan_tp_specs, tp_sharding_summary)
+    start = time.perf_counter()
+    raw = train_batch(7, 2, net=TP_NET, objects=4)
+    initial = init_like_flax(_tp_model(), 0).state_dict()
+    weights = {k: v.numpy() for k, v in initial.items()}
+    dense_model = _tp_model()
+    dense_model.load_state_dict(initial)
+    dense_model.to(device)
+    dense = _two_steps(
+        TrainState.create(dense_model, make_optimizer(TRAIN_LR)),
+        train_step_fn(TP_NET, False), raw, dense_model,
+        lambda model, tensors=None: dict(
+            model.state_dict() if tensors is None else tensors))
+    del dense_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks = tp_world(weights, raw, device)
+    run = ranks[0]['run']
+    m_tp, m_dense = run['metrics'][0], dense['metrics'][0]
+    errors = {
+        'metrics_max_rel': max(abs(m_tp[k] - v) / max(abs(v), 1e-30)
+                               for k, v in m_dense.items() if v),
+        'metrics_out_of_tol': [
+            k for k, v in m_dense.items()
+            if abs(m_tp[k] - v) > METRIC_ATOL + METRIC_RTOL * abs(v)],
+        'grads_rel_l2_max': max(rel_l2(run['grads'][k], v)
+                                for k, v in dense['grads'].items()),
+        'step1_rel_l2_max': max(rel_l2(run['step1'][k], v)
+                                for k, v in dense['step1'].items())}
+    names = sorted(dense['grads'])
+    w0 = {k: initial[k] for k in names}
+    d = _update({k: run['step2'][k] for k in names}, w0)
+    d_ref = _update({k: dense['step2'][k] for k in names}, w0)
+    update = {'cosine': float(d @ d_ref / (d.norm() * d_ref.norm())),
+              'norm_ratio': float(d.norm() / d_ref.norm()),
+              'loss': m_tp['loss'], 'dense_loss': m_dense['loss']}
+    mesh = Mesh({'data': 1, 'model': TP_RANKS})
+    plan = plan_tp_specs(initial, mesh, min_params=TP_MIN_PARAMS)
+    split = [k for k, axis in plan.items() if axis is not None]
+    for r in ranks:
+        for k in split:
+            if r['held'][k][plan[k]] * TP_RANKS != weights[k].shape[plan[k]]:
+                raise AssertionError(f'{k}: held {r["held"][k]}')
+    out = {'phase': 'tensor_parallel', 'net': TP_NET, 'T': T, 'batch': 2,
+           'classes': NUM_CLASSES, 'convlstm_features': 64, 'width_div': 8,
+           'mesh': {'data': 1, 'model': TP_RANKS},
+           'device_per_rank': str(device),
+           'collectives': 'gloo, on the CUDA tensors',
+           'rank_seconds': [{k: r[k] for k in ('started_s', 'setup_s',
+                                               'steps_s')} for r in ranks],
+           'min_params': TP_MIN_PARAMS,
+           'summary': tp_sharding_summary(initial, mesh,
+                                          min_params=TP_MIN_PARAMS),
+           'param_bytes': {'dense': ranks[0]['dense_bytes'],
+                           'ranks': [r['bytes'] for r in ranks]},
+           'sharded_leaves_hold_1_over_tp': len(split),
+           'tp_vs_dense': {**errors, 'update': update,
+                           'tolerance': {'metrics_rtol': METRIC_RTOL,
+                                         'metrics_atol': METRIC_ATOL,
+                                         'rel_l2': LEAF_TOL,
+                                         'cosine': TP_COS,
+                                         'norm_ratio': TP_RATIO,
+                                         'loss': TP_LOSS}}}
+    if (errors['metrics_out_of_tol']
+            or errors['grads_rel_l2_max'] > LEAF_TOL
+            or errors['step1_rel_l2_max'] > LEAF_TOL
+            or update['cosine'] < TP_COS
+            or abs(update['norm_ratio'] - 1.0) > TP_RATIO
+            or abs(update['loss'] - update['dense_loss'])
+            > TP_LOSS * (1 + abs(update['dense_loss']))
+            or max(out['param_bytes']['ranks'])
+            >= out['param_bytes']['dense']):
+        raise AssertionError(f'tensor parallel vs dense: {out}')
+    column = {**ranks[0]['column_conv'], 'blocks': TP_RANKS,
+              'tolerance_over_scale': COLUMN_TOL,
+              'rank_max_abs_diff': [r['column_conv']['max_abs_diff']
+                                    for r in ranks]}
+    if (max(column['rank_max_abs_diff']) > COLUMN_TOL * column['scale']
+            or column['weight_held'][0] * TP_RANKS != 4 * 512
+            or column['bias_held'] != [4 * 512 // TP_RANKS]):
+        raise AssertionError(f'column-parallel conv: {column}')
+    out['column_conv'] = column
+    out['world_s'] = time.perf_counter() - start
+
+    served = _tp_model()
+    served.load_state_dict(run['step2'])
+    out['serve'] = serve_trained(served.to(device), device, net=TP_NET)
+    out['phase_s'] = time.perf_counter() - start
+    out['card'] = smi
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -2197,28 +2616,52 @@ def main() -> int:
                    'cudnn.allow_tf32': torch.backends.cudnn.allow_tf32},
           'kernel_build_s': build_s, 'ptxas': ptxas})
 
+    seconds, mark = {}, [time.perf_counter()]
+
+    def took(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name], mark[0] = now - mark[0], now
+
     kern = kernel_phase(device)
     emit({'phase': 'kernel', **kern, 'card': smi})
+    took('kernel')
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
+    took('path')
     detector, netout, obj = detector_phase(device, smi)
     emit(detector)
+    took('detector')
     golden = golden_phase(device, smi)
     emit(golden)
+    took('golden')
     dn = decode_nms_phase(device, netout, obj)
     emit({'phase': 'decode_nms', **dn, 'card': smi})
+    took('decode_nms')
     train, trained = train_phase(device, smi)
     emit(train)
+    took('train')
     tracker, tracker_launches = tracker_phase(device, smi)
     emit(tracker)
+    took('tracker')
     emit(detector_train_phase(device, smi))
+    took('detector_train')
     deep = deep_phase(device, smi)
     emit(deep)
+    took('deep')
     served = serve_phase(device, smi, trained)
     emit(served)
+    took('serve')
     parallel = parallel_phase(device, smi)
     emit(parallel)
+    took('parallel')
+    native = native_data_phase(device, smi)
+    emit(native)
+    took('native_data')
+    tp = tensor_parallel_phase(device, smi)
+    emit(tp)
+    took('tensor_parallel')
+    emit({'phase_seconds': seconds, 'total_s': time.perf_counter() - start})
 
     nms_launches = {'joint_path': path['nms_launches'],
                     'detector_path': detector['nms_launches'],
@@ -2229,7 +2672,15 @@ def main() -> int:
                     'deep_head_predict': deep['nms_launches'],
                     **served['nms_launches'],
                     'moe_head_predict':
-                        parallel['moe_predict']['nms_launches']}
+                        parallel['moe_predict']['nms_launches'],
+                    'tensor_parallel_serve': tp['serve']['nms_launches']}
+    not_driven = {}
+    if native['available']:
+        nms_launches['native_decode_golden'] = \
+            native['cfg_detector']['nms_launches']
+    else:
+        not_driven['native_decode_golden'] = \
+            'not driven: libottdata.so cannot build on this machine'
     dn_err = max(max(c['boxes_max_abs_diff'], c['scores_max_abs_diff'])
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']
@@ -2243,6 +2694,7 @@ def main() -> int:
         'shapes': {'boxes': [32, 128, 4], 'scores': [32, 128, NUM_CLASSES]},
         'launches': sum(nms_launches.values()),
         'launches_by_path': nms_launches,
+        'paths_not_driven': not_driven,
         'max_abs_err': max(c['max_abs_diff'] for c in kern['checks']),
         'max_abs_diff': max(c['max_abs_diff'] for c in kern['checks']),
         'ms': k1['device']['ms'] or k1['call_ms'],

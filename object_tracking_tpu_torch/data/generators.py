@@ -24,9 +24,12 @@ give the same batches for the same seed. Host augmentation draws its
 per-window or per-frame seeds from a separate torch generator, so it
 leaves that stream alone (JAX draws them from its own PRNG key).
 
-Images are decoded with `cv2`, imported at use, unless the caller passes
-`loader=` (path → (H, W, 3) float32 in [0, 1]); the JAX package prefers
-its native C++ decoder, whose binding waits (ROADMAP.md queue 1).
+Images are decoded where the JAX generators decode them: with the native
+C++ runtime (`data/native_loader.py`) when its library builds, else with
+`cv2`, imported at use. Without `loader=` a batch is one native call
+(`load_batch`, two threads), else one `loader(path)` (path → (H, W, 3)
+float32 in [0, 1]) per frame; the raw mode's uint8 frames come from
+`load_batch_u8` whenever the library is available, `loader=` or not.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from object_tracking_tpu_torch.data import native_loader
 from object_tracking_tpu_torch.data.augment import (
     AugmentConfig, augment_frames_batch, augment_sequences_batch)
 from object_tracking_tpu_torch.data.voc import Annotation
@@ -55,6 +59,10 @@ def _read_resized(path: str, net_h: int, net_w: int) -> np.ndarray:
 
 
 def _default_loader(net_h: int, net_w: int) -> Callable[[str], np.ndarray]:
+    native = native_loader.make_loader(net_h, net_w)
+    if native is not None:
+        return native
+
     def load(path: str) -> np.ndarray:
         return np.asarray(_read_resized(path, net_h, net_w),
                           np.float32) / 255.0
@@ -96,6 +104,10 @@ class _GeneratorBase:
         self.augment = augment
         self.aug_config = aug_config or AugmentConfig()
         self.loader = loader or _default_loader(net_h, net_w)
+        self._batch_loader = None
+        if loader is None and native_loader.available():
+            self._batch_loader = lambda paths: native_loader.load_batch(
+                paths, net_h, net_w, n_threads=2)
         self.debug_dir = debug_dir
         self._rng = np.random.RandomState(seed)
         self._aug_rng = torch.Generator().manual_seed(seed)
@@ -114,12 +126,18 @@ class _GeneratorBase:
             num_classes=len(self.labels), true_box_buffer=self.max_boxes)
 
     def _load_paths(self, paths: Sequence[str]) -> np.ndarray:
-        """(N, net_h, net_w, 3) float32 batch."""
+        """(N, net_h, net_w, 3) float32 batch: one native call without
+        `loader=`, else the loader per path."""
+        if self._batch_loader is not None:
+            return self._batch_loader(list(paths))
         return np.stack([self.loader(p) for p in paths])
 
     def _load_paths_u8(self, paths: Sequence[str]) -> np.ndarray:
         """(N, net_h, net_w, 3) uint8 RGB, resized but not normalised (the
         fused step divides by 255 on the device)."""
+        if native_loader.available():
+            return native_loader.load_batch_u8(list(paths), self.net_h,
+                                               self.net_w, n_threads=2)
         out = np.empty((len(paths), self.net_h, self.net_w, 3), np.uint8)
         for i, p in enumerate(paths):
             out[i] = _read_resized(p, self.net_h, self.net_w)

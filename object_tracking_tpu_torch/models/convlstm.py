@@ -31,13 +31,16 @@ from torch import nn
 from object_tracking_tpu_torch.models.darknet19 import conv
 from object_tracking_tpu_torch.parallel.context import context_parallel_scan
 from object_tracking_tpu_torch.parallel.pipeline import pipeline_scan
+from object_tracking_tpu_torch.parallel.sharding import (
+    column_conv, column_operands)
 
 
-def _cell(wh: torch.Tensor, carry, xt: torch.Tensor):
+def _cell(wh: torch.Tensor, carry, xt: torch.Tensor, group=None):
     """One ConvLSTM step: xt (B, 4F, H, W) the projected input with its
-    bias, carry (c, h) → ((c, h), h)."""
+    bias, carry (c, h) → ((c, h), h). With a model `group`, wh is this
+    rank's block of the 4F gate channels (tensor parallelism)."""
     c_t, h_t = carry
-    gates = xt + F.conv2d(h_t, wh, padding=wh.shape[-1] // 2)
+    gates = xt + column_conv(h_t, wh, None, wh.shape[-1] // 2, group)
     gi, gf, gg, go = gates.chunk(4, dim=1)
     c_t = torch.sigmoid(gf) * c_t + torch.sigmoid(gi) * torch.tanh(gg)
     h_t = torch.sigmoid(go) * torch.tanh(c_t)
@@ -45,13 +48,14 @@ def _cell(wh: torch.Tensor, carry, xt: torch.Tensor):
 
 
 def _recur(xp: torch.Tensor, wh: torch.Tensor, c_t: torch.Tensor,
-           h_t: torch.Tensor):
+           h_t: torch.Tensor, group=None):
     """The sequential half of a ConvLSTM layer: xp (B, T, 4F, H, W), the
     projected inputs with their bias; wh (4F, F, kh, kw) the recurrent
-    kernel (no bias) → (h (B, T, F, H, W), final (c, h))."""
+    kernel (no bias), or its block of the gate channels with a model
+    `group` → (h (B, T, F, H, W), final (c, h))."""
     carry, hs = (c_t, h_t), []
     for step in range(xp.shape[1]):
-        carry, h = _cell(wh, carry, xp[:, step])
+        carry, h = _cell(wh, carry, xp[:, step], group)
         hs.append(h)
     return torch.stack(hs, dim=1), carry
 
@@ -70,7 +74,12 @@ class FusedConvLSTM(nn.Module):
         `context_parallel_scan`'s exact ring. Requires `mesh`, whose data
         axis has time_shards ranks.
       mesh: the `parallel.mesh.Mesh` (read only when time_shards > 1).
+
+    Under tensor parallelism (`parallel.sharding`) the input projection
+    and the recurrent conv are column-parallel over the gate channels.
     """
+
+    tp_leaves = ('recurrent_kernel',)
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  dtype: torch.dtype = torch.float32, time_shards: int = 1,
@@ -107,10 +116,11 @@ class FusedConvLSTM(nn.Module):
                                 device=x.device)
             initial_state = (zeros, zeros)
         c_t, h_t = (s.to(self.dtype) for s in initial_state)
-        wh = self.recurrent_kernel.to(self.dtype)
+        wh, _, group = column_operands(self, 'recurrent_kernel', None)
+        wh = wh.to(self.dtype)
         if self.time_shards > 1:
             return self._time_sharded(xp, wh, (c_t, h_t), return_state)
-        ys, state = _recur(xp, wh, c_t, h_t)
+        ys, state = _recur(xp, wh, c_t, h_t, group)
         if return_state:
             return ys, state
         return ys
@@ -151,7 +161,12 @@ class StackedConvLSTM(nn.Module):
     checkpoints read to gather the dense stacks on save). The pipelined
     path projects each step's input inside its stage, as the JAX layer
     does. It returns no final state.
+
+    Under tensor parallelism (`parallel.sharding`) both convs of every
+    layer are column-parallel over the 4F gate channels.
     """
+
+    tp_leaves = ('input_kernel', 'input_bias', 'recurrent_kernel')
 
     def __init__(self, features: int, num_layers: int, kernel: int = 3,
                  dtype: torch.dtype = torch.float32, pipeline: bool = False,
@@ -221,14 +236,17 @@ class StackedConvLSTM(nn.Module):
         pad = self.input_kernel.shape[-1] // 2
         if self.pipeline:
             return self._pipelined(ys, (c0, h0), pad, return_state)
+        wx, bx, x_group = column_operands(self, 'input_kernel', 'input_bias',
+                                          bias_axis=1)
+        wh, _, h_group = column_operands(self, 'recurrent_kernel', None)
         finals = []
         for layer in range(self.num_layers):
-            xp = F.conv2d(ys.reshape(b * t, f, h, w),
-                          self.input_kernel[layer].to(self.dtype),
-                          self.input_bias[layer].to(self.dtype),
-                          padding=pad).reshape(b, t, 4 * f, h, w)
-            ys, final = _recur(xp, self.recurrent_kernel[layer].to(
-                self.dtype), c0[layer], h0[layer])
+            xp = column_conv(ys.reshape(b * t, f, h, w),
+                             wx[layer].to(self.dtype),
+                             bx[layer].to(self.dtype), pad,
+                             x_group).reshape(b, t, 4 * f, h, w)
+            ys, final = _recur(xp, wh[layer].to(self.dtype), c0[layer],
+                               h0[layer], h_group)
             finals.append(final)
         if return_state:
             return ys, tuple(torch.stack(s) for s in zip(*finals))

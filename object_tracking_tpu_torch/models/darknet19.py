@@ -30,6 +30,8 @@ from torch import nn
 
 from object_tracking_tpu_torch.parallel.collectives import (
     all_reduce_sum, group_size)
+from object_tracking_tpu_torch.parallel.sharding import (
+    column_conv, column_operands, held)
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -117,6 +119,7 @@ class BatchNorm(nn.Module):
     """
 
     momentum = 0.99
+    tp_leaves = ('bias',)               # gathered at use when sharded
 
     def __init__(self, features: int, eps: float = 1e-3, group=None):
         super().__init__()
@@ -128,6 +131,7 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
 
     def forward(self, x: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+        weight, bias = self.weight, held(self, 'bias')
         if not batch_stats:
             mean, var = self.running_mean, self.running_var
         else:
@@ -148,20 +152,23 @@ class BatchNorm(nn.Module):
                     self.running_mean.lerp_(mean, 1.0 - self.momentum)
                     self.running_var.lerp_(var, 1.0 - self.momentum)
             if torch.is_grad_enabled():
-                mul = torch.rsqrt(var + self.eps) * self.weight
+                mul = torch.rsqrt(var + self.eps) * weight
                 y = ((x - mean[:, None, None]) * mul[:, None, None]
-                     + self.bias[:, None, None])
+                     + bias[:, None, None])
                 return y.to(x.dtype)
-        return F.batch_norm(x, mean, var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        return F.batch_norm(x, mean, var, weight, bias, training=False,
+                            eps=self.eps)
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
     """`layer` applied in x's dtype ('SAME' padding, stride 1); the
-    float32 parameters are cast, never stored in the compute type."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.conv2d(x, layer.weight.to(x.dtype), bias,
-                    padding=layer.kernel_size[0] // 2)
+    float32 parameters are cast, never stored in the compute type. A
+    layer whose weight is tensor-parallel computes its own output
+    channels and gathers the rest (`parallel.sharding.column_conv`)."""
+    weight, bias, group = column_operands(layer, 'weight', 'bias')
+    return column_conv(x, weight.to(x.dtype),
+                       None if bias is None else bias.to(x.dtype),
+                       layer.kernel_size[0] // 2, group)
 
 
 class Darknet19(nn.Module):

@@ -24,12 +24,16 @@ import torch
 from torch import nn
 
 from object_tracking_tpu_torch.parallel.expert import moe_apply
+from object_tracking_tpu_torch.parallel.sharding import held
 
 
 class MoEGridHead(nn.Module):
     """Per-grid-cell top-1 MoE head: (..., D) tokens → (..., out_features),
     all leading axes flattened into one token axis (`num_groups` routing
     groups of consecutive tokens)."""
+
+    # every leaf is gathered at use when tensor parallelism shards it
+    tp_leaves = ('gate', 'w1', 'b1', 'w2', 'b2')
 
     def __init__(self, features: int, num_experts: int, hidden: int,
                  out_features: int, capacity_factor: float = 1.25,
@@ -66,8 +70,7 @@ class MoEGridHead(nn.Module):
         `parallel.expert._route`) and aux is this rank's share of the
         global auxiliary loss."""
         *lead, d = z.shape
-        params = {k: getattr(self, k).to(self.dtype)
-                  for k in ('gate', 'w1', 'b1', 'w2', 'b2')}
+        params = {k: held(self, k).to(self.dtype) for k in self.tp_leaves}
         tokens = z.reshape(-1, d).to(self.dtype)
         out, aux = moe_apply(params, tokens, num_groups=self.num_groups,
                              capacity_factor=self.capacity_factor,

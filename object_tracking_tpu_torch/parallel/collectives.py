@@ -10,7 +10,15 @@ that transpose:
   the cotangent back to the previous one;
 - `replicated_input`: a value every rank holds (JAX's `pcast` of an
   invariant to a varying value); backward sums the cotangents, since each
-  rank may use it differently;
+  rank may use it differently. Tensor parallelism puts it at the input of
+  a column-parallel conv: each rank's conv computes only its block of
+  output channels, so it holds only their share of dL/dx;
+- `gather_blocks`: every rank's block of a tensor, concatenated along an
+  axis in rank order (tensor parallelism's output of a column-parallel
+  conv, or a sharded parameter gathered at use); backward keeps each
+  rank's own block of the cotangent, because the computation after it is
+  replicated and every rank holds the same one (summing would count it
+  once per rank);
 - `share_from_last`: the last rank's value given to every rank (a psum of
   masked values); backward keeps each rank's own cotangent, because the
   computation after it is replicated and every rank holds the same one;
@@ -158,6 +166,29 @@ def share_from_last(x: torch.Tensor, group) -> torch.Tensor:
     is_last = torch.tensor(group_rank(group) == group_size(group) - 1,
                            device=x.device)
     return _ShareFromLast.apply(x, group, is_last)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.block = x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at = group_rank(ctx.group) * ctx.block
+        return grad.narrow(ctx.dim, at, ctx.block), None, None
+
+
+def gather_blocks(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, in rank order; the
+    identity without a group. What follows must be computed alike on every
+    rank of `group`: the gradient of `x` is its block of the cotangent."""
+    return x if group is None else _GatherBlocks.apply(x, group, dim)
 
 
 class _AllToAll(torch.autograd.Function):

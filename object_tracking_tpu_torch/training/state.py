@@ -14,8 +14,9 @@ Global-norm clipping follows optax's `clip_by_global_norm`: the gradients
 are scaled by max/norm only when norm >= max (`clip_grad_norm_` scales by
 max/(norm + 1e-6) whenever norm > max), computed on the device without a
 host sync. Under pipeline parallelism a stage's parameters live on its
-rank alone, so their squared norms are summed over the stage group: the
-norm is the dense model's.
+rank alone, and under tensor parallelism a block on its rank alone, so
+their squared norms are summed over the stage or model group: the norm is
+the dense model's.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from torch import nn
 
 from object_tracking_tpu_torch.parallel.pipeline import (
     stage_sharded_parameters)
+from object_tracking_tpu_torch.parallel.sharding import (
+    tp_sharded_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,15 +83,19 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 def clip_model_gradients_(model: nn.Module, max_norm: float
                           ) -> torch.Tensor:
     """`clip_by_global_norm_` over the gradients of `model`'s parameters,
-    a pipelined stack's stage slices summed over their stage group;
-    returns the global norm."""
-    staged = stage_sharded_parameters(model)
+    a pipelined stack's stage slices summed over their stage group and
+    tensor-parallel blocks over their model group; returns the global
+    norm."""
+    sharded = {name: stage[0] for name, stage
+               in stage_sharded_parameters(model).items()}
+    sharded.update((name, shard.group) for name, shard
+                   in tp_sharded_parameters(model).items())
     groups, grads = {}, []
     for name, p in model.named_parameters():
         if p.grad is None:
             continue
-        if name in staged:
-            groups.setdefault(staged[name][0], []).append(p.grad)
+        if name in sharded:
+            groups.setdefault(sharded[name], []).append(p.grad)
         else:
             grads.append(p.grad)
     return clip_by_global_norm_(grads, max_norm, list(groups.items()))

@@ -2,13 +2,13 @@
 synthetic dataset and `SequenceBatches` in both modes, against the JAX
 package on the same synthetic folder.
 
-Decoders: the port decodes with cv2. The JAX generator decodes with its
-native C++ loader when that library is built (raw mode always prefers it)
-and with cv2 otherwise; the legacy-mode comparison hands the JAX generator
-the port's cv2 loader, so both sides decode the same way, and the raw-mode
-images are compared exactly when the JAX side fell back to cv2 and to
-within 2 levels of 255 in the mean when it used the native decoder.
-Every other field is compared exactly.
+Decoders: both packages decode with the native C++ loader when its library
+builds (raw mode always prefers it) and with cv2 otherwise. The JAX
+binding is handed the port's library (`torch_parity.share_native_library`),
+in every test, so both sides decode with one decoder (and no test here
+builds into native/): every field, the raw-mode images included, is
+compared exactly; the legacy-mode comparison hands both generators the
+port's default loader.
 """
 
 import dataclasses
@@ -20,7 +20,6 @@ import torch
 
 from object_tracking_tpu.data import SequenceBatches as JBatches
 from object_tracking_tpu.data import make_sequence_windows as jwindows
-from object_tracking_tpu.data import native_loader
 from object_tracking_tpu.data import parse_annotation_dir as jparse
 from object_tracking_tpu.data.generators import _pad_boxes as jpad
 from object_tracking_tpu.data.synthetic import (
@@ -34,10 +33,17 @@ from object_tracking_tpu_torch.data.generators import (_default_loader,
 from object_tracking_tpu_torch.data.synthetic import (
     make_synthetic_annotations, make_synthetic_dataset)
 
+from torch_parity import share_native_library
+
 LABELS = ('1', '2')
 NET = 64
 KW = dict(net_h=NET, net_w=NET, grid_h=2, grid_w=2,
           anchors=(1.0, 1.0, 2.5, 2.0), batch_size=2, max_boxes=5, seed=3)
+
+
+@pytest.fixture(autouse=True)
+def one_decoder(monkeypatch):
+    share_native_library(monkeypatch)
 
 
 @pytest.fixture(scope='module')
@@ -102,22 +108,14 @@ def test_raw_mode_equals_jax_field_for_field(folder):
     for _ in range(2):                                    # two epochs
         for got, want in zip(port(), ref()):
             assert set(got) == set(want)
-            for k in ('boxes', 'cls', 'valid', 'aug_seeds'):
+            for k in ('boxes', 'cls', 'valid', 'aug_seeds', 'images_u8'):
                 assert got[k].dtype == want[k].dtype, k
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-            assert got['images_u8'].dtype == np.uint8
-            assert got['images_u8'].shape == want['images_u8'].shape
-            diff = np.abs(got['images_u8'].astype(int)
-                          - want['images_u8'].astype(int))
-            if native_loader.available():
-                assert diff.mean() <= 2.0
-            else:
-                assert diff.max() == 0
 
 
 def test_legacy_mode_equals_jax_field_for_field(folder):
-    """augment=False, and the JAX generator given the port's cv2 loader:
-    images, targets and true-box buffers equal."""
+    """augment=False, and both generators given the port's default
+    loader: images, targets and true-box buffers equal."""
     port, ref = _generators(folder, augment=False,
                             loader=_default_loader(NET, NET))
     for got, want in zip(port(), ref()):

@@ -58,7 +58,8 @@ def test_package_has_the_slice_modules():
                    'models.moe_head', 'parallel', 'parallel.mesh',
                    'parallel.collectives', 'parallel.context',
                    'parallel.pipeline', 'parallel.expert', 'utils',
-                   'utils.profiling'):
+                   'utils.profiling', 'parallel.sharding',
+                   'data.native_loader'):
         assert f'object_tracking_tpu_torch.{module}' in names
     from object_tracking_tpu_torch import trainer
     from object_tracking_tpu_torch.models.convlstm import StackedConvLSTM

@@ -1,9 +1,9 @@
 """Port parity of `TrackerSequenceBatches` and `DetectionBatches` against
 the JAX generators on the same synthetic folder, on the CPU.
 
-Both sides decode with the port's cv2 loader (the JAX default prefers its
-native decoder when built). With augmentation off, the same seed gives the
-same batches, epoch after epoch:
+Both sides decode with the port's default loader (the native decoder
+where its library builds, else cv2). With augmentation off, the same seed
+gives the same batches, epoch after epoch:
 - over `FakeDetector`: 'det' and 'target' exactly, 'feats' rtol 1e-4
   (the mean pixel, summed in another order);
 - over a width_div-8 `YOLOv2Detector` with the JAX weights carried by

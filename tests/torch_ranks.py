@@ -435,3 +435,163 @@ def flow_world(rank, n, store, workdir, joint):
                      for k, p in state.model.named_parameters()},
             'params': {k: _np(p) for k, p in
                        state.model.named_parameters()}}
+
+
+# ------------------------------------------------------ tensor parallelism
+
+def op_world(rank, n, inputs):
+    """The column-parallel operators over a model axis of n ranks against
+    dense autograd: gather_blocks on dims 0 and 1, a column-parallel conv
+    (with and without replicated_input at its input), and a conv layer
+    whose weight is sharded beside a replicated bias."""
+    import torch.nn.functional as F
+    from torch import nn
+    from object_tracking_tpu_torch.models.darknet19 import conv
+    from object_tracking_tpu_torch.parallel.collectives import gather_blocks
+    from object_tracking_tpu_torch.parallel.sharding import (
+        Shard, column_conv)
+    group = _mesh(1, n).group('model')
+    out = {}
+    for dim in (0, 1):
+        whole = torch.from_numpy(inputs['blocks'])
+        per = whole.shape[dim] // n
+        mine = whole.narrow(dim, rank * per, per).clone().requires_grad_()
+        y = gather_blocks(mine, group, dim)
+        (y * torch.from_numpy(inputs['blocks_w'])).sum().backward()
+        out[f'gather_{dim}'] = _np(y)
+        out[f'gather_{dim}_grad'] = _np(mine.grad)
+
+    w = torch.from_numpy(inputs['w'])
+    b = torch.from_numpy(inputs['b'])
+    per = w.shape[0] // n
+    mine = slice(rank * per, (rank + 1) * per)
+    for name, route in (('column', column_conv),
+                        ('no_replicated_input', lambda x, wr, br, p, g:
+                         gather_blocks(F.conv2d(x, wr, br, padding=p), g,
+                                       1))):
+        x = torch.from_numpy(inputs['x']).requires_grad_()
+        wr = w[mine].clone().requires_grad_()
+        br = b[mine].clone().requires_grad_()
+        y = route(x, wr, br, 1, group)
+        (y * torch.from_numpy(inputs['y_w'])).sum().backward()
+        out[name] = _np(y)
+        out[name + '_grads'] = {'x': _np(x.grad), 'w': _np(wr.grad),
+                                'b': _np(br.grad)}
+
+    layer = nn.Conv2d(w.shape[1], w.shape[0], 3)
+    layer.weight = nn.Parameter(w[mine].clone())
+    layer.bias = nn.Parameter(b.clone())
+    layer.tp_shards = {'weight': Shard(group, rank, n, 0)}
+    x = torch.from_numpy(inputs['x']).requires_grad_()
+    (conv(x, layer) * torch.from_numpy(inputs['y_w'])).sum().backward()
+    out['replicated_bias'] = {'x': _np(x.grad), 'w': _np(layer.weight.grad),
+                              'b': _np(layer.bias.grad)}
+    return out
+
+
+TP_MODEL = dict(num_classes=3, num_anchors=5, convlstm_features=16,
+                width_div=8)
+TP_ENC = dict(net_h=64, net_w=64, grid_h=2, grid_w=2, num_classes=3,
+              true_box_buffer=5)
+TP_HEADS = {'dense': {}, 'moe': dict(moe_experts=2, moe_hidden=8)}
+TP_MIN_PARAMS = 1 << 8
+
+
+def _host(tensors) -> dict:
+    return {k: v.detach().numpy().copy() for k, v in tensors.items()}
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tp_steps(weights, head: str, raw, mesh=None, shard: bool = True,
+             dtype=torch.float32):
+    """Two fused train steps (no augmentation, lr 1e-3) of the small joint
+    model with `weights`, on this rank's slice of the raw global batch;
+    with `shard`, the model is tensor-parallel over the mesh's model axis
+    (min_params 1 << 8); `dtype` is the parameters' and activations' type.
+    Returns the metrics of both steps, the global gradient norm and the
+    dense gradients of the first, the dense state after each, the
+    parameter shapes and bytes this rank holds, and the dense model's
+    bytes."""
+    from object_tracking_tpu_torch.config import YOLOV2_ANCHORS
+    from object_tracking_tpu_torch.models import MultiObjDetTracker
+    from object_tracking_tpu_torch.parallel import (
+        gather_dense, shard_batch, shard_variables)
+    from object_tracking_tpu_torch.training import (
+        TrainState, make_joint_train_step_fused, make_optimizer)
+    from object_tracking_tpu_torch.training.state import (
+        clip_model_gradients_)
+    model = MultiObjDetTracker(**TP_MODEL, **TP_HEADS[head], mesh=mesh,
+                               dtype=dtype).to(dtype)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    out = {'dense_bytes': _param_bytes(model), 'metrics': []}
+    if mesh is not None and shard:
+        shard_variables(mesh, model, min_params=TP_MIN_PARAMS)
+    out['bytes'] = _param_bytes(model)
+    out['held'] = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    state = TrainState.create(model, make_optimizer(1e-3))
+    step = make_joint_train_step_fused(YOLOV2_ANCHORS, augment=False,
+                                       mesh=mesh, **TP_ENC)
+    mine = raw if mesh is None else shard_batch(mesh, raw)
+    for i in range(2):
+        state, metrics = step(state, mine)
+        out['metrics'].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out['norm'] = float(clip_model_gradients_(model, float('inf')))
+            out['grads'] = _host(gather_dense(model, {
+                k: p.grad for k, p in model.named_parameters()}))
+            out['step1'] = _host(gather_dense(model))
+    out['step2'] = _host(gather_dense(model))
+    return out
+
+
+def _rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def tp_errors(got: dict, ref: dict) -> dict:
+    """The largest gaps between two `tp_steps` runs: the first step's
+    metrics (relative), gradients, parameters and BatchNorm statistics
+    after it (relative L2 per leaf), and the gradient norms."""
+    m1, r1 = got['metrics'][0], ref['metrics'][0]
+    return {
+        'metrics': max(abs(m1[k] - r1[k]) / max(abs(r1[k]), 1e-30)
+                       for k in r1),
+        'grads': max(_rel_l2(got['grads'][k], v)
+                     for k, v in ref['grads'].items()),
+        'step1': max(_rel_l2(got['step1'][k], v)
+                     for k, v in ref['step1'].items()),
+        'norm': abs(got['norm'] - ref['norm']) / ref['norm']}
+
+
+def tp_world(rank, n, inputs, layouts):
+    """The joint fused step under dp x tp for each (dp, tp) of `layouts`
+    (dp·tp = n) and each head of TP_HEADS: in float64 the tensor-parallel
+    run against the dense run on the same mesh (the errors, on every
+    rank), the plan's summary, and on rank 0 the float32 tensor-parallel
+    run whole and the float64 one's first step."""
+    from object_tracking_tpu_torch.parallel import tp_sharding_summary
+    out = {}
+    for dp, tp in layouts:
+        mesh = _mesh(dp, tp)
+        for head in TP_HEADS:
+            w, raw = inputs[head], inputs['raw']
+            got = tp_steps(w, head, raw, mesh)
+            res = {k: got[k] for k in ('held', 'bytes', 'dense_bytes')}
+            got64 = tp_steps(w, head, raw, mesh, dtype=torch.float64)
+            res['errors'] = tp_errors(got64, tp_steps(
+                w, head, raw, mesh, shard=False, dtype=torch.float64))
+            res['summary'] = tp_sharding_summary(
+                {k: torch.from_numpy(v) for k, v in inputs[head].items()},
+                mesh, min_params=TP_MIN_PARAMS)
+            if rank == 0:
+                res['run'] = {k: got[k] for k in
+                              ('metrics', 'grads', 'step1', 'step2',
+                               'norm')}
+                res['run64'] = {k: got64[k] for k in ('metrics', 'grads')}
+            out[f'{dp}x{tp}_{head}'] = res
+    return out
