@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, detector, training, single-object,
-deep-head, exported-serving, parallel, native-data and tensor-parallel
-paths on one NVIDIA GPU and check them.
+deep-head, exported-serving, parallel, native-data, tensor-parallel and
+data-parallel training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -108,15 +108,15 @@ JSON line:
    same process (median of three samples, all kept) and both profiles;
 12. serve: the train phase's trained weights exported with torch.export
    (`serving.export_joint`, kernel 1 as the custom op
-   `ott_torch::nms_scores`) at B=1 and B=8, T=4, 416², with each export's
-   seconds and the artifact's MB. Each artifact serves three streamed
-   calls, kernel 1 once per call: labels and ids equal to JointPredictor's
-   on the same weights and frames, boxes and scores within 1e-5. The B=1
-   artifact is reloaded by a fresh interpreter that never imports the
-   port's models and serves the same. A deep-head artifact at the reduced
-   cut round-trips its 4-leaf state. Frames/s served and through
-   JointPredictor at B=1 and B=8 in float32 (median of two samples,
-   all kept);
+   `ott_torch::nms_scores`) at B=8, T=4, 416², with the export's seconds
+   and the artifact's MB. The artifact serves three streamed calls,
+   kernel 1 once per call: labels and ids equal to JointPredictor's on the
+   same weights and frames, boxes and scores within 1e-5. The B=1
+   artifact is a deep head's (convlstm_layers=2) at the reduced cut
+   (width_div=8, 128²): it round-trips its 4-leaf state, equals
+   JointPredictor, and a fresh interpreter that never imports the port's
+   models reloads it and serves the same. Frames/s served and through
+   JointPredictor at B=8 in float32 (median of two samples, all kept);
 13. parallel: the MoE head (moe_experts=4, moe_hidden=256) at bench.py's
    model: three B=8 and three B=1 predict calls beside the dense head
    (kernel 1 once per call, identical to nms_impl='sort'), the head's
@@ -155,7 +155,27 @@ JSON line:
    clock). Then the gathered TP-trained weights serve three
    predict_window calls through JointPredictor: kernel 1 once per call,
    identical to nms_impl='sort';
-16. each phase's seconds, the kernels line (each kernel's launches on the
+16. data_parallel_flows: the standalone detector step (Darknet-19 at
+   DetectorConfig(): 416², 80 classes, B=8, random BatchNorm scales and
+   biases) and the tiny step (TinyTracker LSTM-512 over (B=4, T=4,
+   13x13x1024) features, bbox and heatmap heads, bce) with a mesh: at
+   world size 1 over NCCL against the plain steps (metrics, gradients,
+   parameters) with the steps/s of each in this process; then over two
+   gloo ranks on cuda:0, each holding half of each global batch, two
+   steps against the one-rank step on the card (the first step's metrics
+   rtol 1e-4, gradients relative L2 <= 1e-3, the two-step update's cosine
+   > 0.999 and norm ratio within 5 %, every rank on the same weights; the
+   detector in float64, since at 416² float32 BatchNorm lies up to 6e-3
+   from float64 in either layout, and in float32 reported);
+   the MoE joint model at the reduced cut on a ragged batch (B=3, which
+   shard_batch replicates: each rank runs the one-rank step) at the same
+   bars; and single_object_tracking(synthetic=True) over the same ranks,
+   one epoch on one 11-frame 416² video fed as arrays (no cv2 here), its
+   frozen full-width YOLOv2 prior running kernel 1 on each rank's global
+   batch: each rank's step sees half of each batch, the ranks end on the
+   same weights, within the same bars of the one-rank flow's update, and
+   only rank 0 writes;
+17. each phase's seconds, the kernels line (each kernel's launches on the
    driven paths, error, times and bound), the nvidia-smi line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -166,6 +186,7 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1768,9 +1789,10 @@ def served_calls(served, reqs) -> list:
     return out
 
 
-def reload_elsewhere(art: bytes, reqs, tmp: str, device) -> list:
-    """The artifact served by a fresh interpreter that imports only
-    serving.py (never the port's models), on `device`."""
+def start_reload(art: bytes, reqs, tmp: str, device) -> subprocess.Popen:
+    """Start a fresh interpreter that imports only serving.py (never the
+    port's models) and serves the artifact on `device` over `reqs`;
+    `reloaded` collects what it served."""
     path = save_artifact(art, str(Path(tmp) / 'joint.ottserve'))
     np.save(Path(tmp) / 'frames.npy', np.stack(reqs))
     code = (
@@ -1787,25 +1809,36 @@ def reload_elsewhere(art: bytes, reqs, tmp: str, device) -> list:
         f'{str(Path(tmp) / "frames.npy")!r})]\n'
         'assert "object_tracking_tpu_torch.models" not in sys.modules\n'
         'print(json.dumps(out))\n')
-    run = subprocess.run([sys.executable, '-c', code],
-                         cwd=str(Path(__file__).resolve().parent),
-                         capture_output=True, text=True, timeout=600)
-    if run.returncode != 0:
-        raise AssertionError(f'reload failed: {run.stderr[-2000:]}')
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, '-c', code],
+                            cwd=str(Path(__file__).resolve().parent),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def reloaded(proc: subprocess.Popen) -> list:
+    """What start_reload's interpreter served; it is killed after 600 s."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f'reload failed: {err[-2000:]}')
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def serve_phase(device, smi: str, weights: dict) -> dict:
     """The train phase's weights exported (torch.export, kernel 1 as the
-    custom op) at B=1 and B=8 and served: three streamed calls each,
-    against JointPredictor on the same weights and frames; the B=1
-    artifact reloaded in a process without the models; a deep-head
-    artifact's 4-leaf state; frames/s served and through JointPredictor."""
+    custom op) at B=8 and served: three streamed calls, against
+    JointPredictor on the same weights and frames; a B=1 deep-head
+    artifact at the reduced cut: its 4-leaf state, and a reload in a
+    process without the models, which runs beside the B=8 export and its
+    checks; frames/s served and through JointPredictor."""
     model = joint_model(device)
     model.load_state_dict(weights)
-    reqs = {batch: [train_batch(60 + 10 * batch + i, batch)['images_u8']
-                    for i in range(3)] for batch in (1, 8)}
-    obj_threshold = pick_obj_threshold(model, as_served(reqs[8][0], device),
+    reqs = [train_batch(140 + i, 8)['images_u8'] for i in range(3)]
+    obj_threshold = pick_obj_threshold(model, as_served(reqs[0], device),
                                        device)
     kwargs = dict(obj_threshold=obj_threshold, nms_threshold=NMS_THRESHOLD)
     out = {'phase': 'serve', 'net': NET, 'T': T, 'classes': NUM_CLASSES,
@@ -1815,59 +1848,57 @@ def serve_phase(device, smi: str, weights: dict) -> dict:
            'card': smi}
     launches, rates = {}, {}
     torch.backends.cudnn.deterministic = True    # served and eager alike
+    proc = None
     try:
-        for batch in (1, 8):
-            art, export_s = timed(lambda b=batch: export_joint(
-                model, YOLOV2_ANCHORS, LABELS_MOT17, batch=b, window=T,
+        with tempfile.TemporaryDirectory() as tmp:
+            deep, proc, deep_got = served_deep_head(device, tmp)
+            launches['served_deep_head'] = deep['nms_launches']
+            art, export_s = timed(lambda: export_joint(
+                model, YOLOV2_ANCHORS, LABELS_MOT17, batch=8, window=T,
                 net_size=(NET, NET), **kwargs))
-            served, load_s = timed(lambda a=art: ServedJointPredictor(
-                a, device=device))
+            served, load_s = timed(lambda: ServedJointPredictor(
+                art, device=device))
             graph = [n.target for n in served.exported.graph.nodes]
             if (graph.count(torch.ops.ott_torch.nms_scores.default) != 1
                     or served.exported.graph_signature.buffers_to_mutate):
                 raise AssertionError('the served graph does not call the '
                                      'op once, or writes a buffer')
-            got = served_calls(served, reqs[batch])
-            launches[f'served_b{batch}'] = cuda_nms.nms_scores.launches
+            got = served_calls(served, reqs)
+            launches['served_b8'] = cuda_nms.nms_scores.launches
             pred = JointPredictor(model, YOLOV2_ANCHORS, LABELS_MOT17,
                                   net_size=(NET, NET), device=device,
                                   **kwargs)
-            want = [pred.predict_batch(as_served(c, device))
-                    for c in reqs[batch]]
-            entry = {'export_s': export_s / 1e3, 'load_s': load_s / 1e3,
-                     'artifact_mb': len(art) / 1e6,
-                     'graph_nodes': len(graph),
-                     'max_abs_diff_vs_joint_predictor': same_served(got,
-                                                                    want),
-                     **check_results([f for call in got for clip in call
-                                      for f in clip], obj_threshold)}
-            if batch == 1:
-                with tempfile.TemporaryDirectory() as tmp:
-                    again = reload_elsewhere(art, reqs[1], tmp, device)
-                entry['reload_without_models_max_abs_diff'] = same_served(
-                    again, got)
-            put_rate(rates, f'fps_served_b{batch}_float32', rate(
-                lambda s=served, c=reqs[batch][0]: s.predict_window(c),
-                batch * T, 5 if batch > 1 else 10, SHORT_SAMPLES))
-            put_rate(rates, f'fps_joint_predictor_b{batch}_float32', rate(
-                lambda c=as_served(reqs[batch][0], device):
-                pred.predict_batch(c), batch * T, 5 if batch > 1 else 10,
-                SHORT_SAMPLES))
-            out[f'b{batch}'] = entry
-            del art, served, pred
-            gc.collect()
-        out['deep_head'] = served_deep_head(device)
-        launches['served_deep_head'] = out['deep_head']['nms_launches']
+            want = [pred.predict_batch(as_served(c, device)) for c in reqs]
+            out['b8'] = {
+                'export_s': export_s / 1e3, 'load_s': load_s / 1e3,
+                'artifact_mb': len(art) / 1e6, 'graph_nodes': len(graph),
+                'max_abs_diff_vs_joint_predictor': same_served(got, want),
+                **check_results([f for call in got for clip in call
+                                 for f in clip], obj_threshold)}
+            deep['reload_without_models_max_abs_diff'] = same_served(
+                reloaded(proc), deep_got)
+            out['deep_head'] = deep
+        put_rate(rates, 'fps_served_b8_float32', rate(
+            lambda: served.predict_window(reqs[0]), 8 * T, 5,
+            SHORT_SAMPLES))
+        put_rate(rates, 'fps_joint_predictor_b8_float32', rate(
+            lambda c=as_served(reqs[0], device): pred.predict_batch(c),
+            8 * T, 5, SHORT_SAMPLES))
     finally:
         torch.backends.cudnn.deterministic = False
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     return {**out, **rates, 'nms_launches': launches}
 
 
-def served_deep_head(device) -> dict:
+def served_deep_head(device, tmp: str) -> tuple:
     """A deep head (convlstm_layers=2) at the reduced cut (width_div=8,
-    128²) exported on the card: its 4-leaf state streams and resets as
-    tests/test_serving.py's deep case does, and its calls equal
-    JointPredictor's."""
+    128²) exported at B=1 on the card: its 4-leaf state streams and
+    resets as tests/test_serving.py's deep case does, and its calls equal
+    JointPredictor's. Returns the record, the started reload of the
+    artifact in a fresh interpreter that never imports the port's models
+    (`start_reload`), and the calls it must reproduce."""
     net = 128
     torch.manual_seed(0)
     model = MultiObjDetTracker(num_classes=NUM_CLASSES, num_anchors=5,
@@ -1877,9 +1908,10 @@ def served_deep_head(device) -> dict:
     obj_threshold = pick_obj_threshold(model, as_served(frames, device),
                                        device)
     kwargs = dict(obj_threshold=obj_threshold, nms_threshold=NMS_THRESHOLD)
-    served = ServedJointPredictor(export_joint(
+    art, export_s = timed(lambda: export_joint(
         model, YOLOV2_ANCHORS, LABELS_MOT17, batch=1, window=T,
-        net_size=(net, net), **kwargs), device=device)
+        net_size=(net, net), **kwargs))
+    served = ServedJointPredictor(art, device=device)
     leaves = [leaf['shape'] for leaf in served.meta['state_leaves']]
     got = served_calls(served, [frames] * 3)
     launches = cuda_nms.nms_scores.launches
@@ -1891,10 +1923,12 @@ def served_deep_head(device) -> dict:
                           net_size=(net, net), device=device, **kwargs)
     want = [pred.predict_batch(as_served(frames, device))
             for _ in range(3)]
-    return {'net': net, 'width_div': 8, 'convlstm_layers': DEEP_LAYERS,
-            'state_leaves': leaves, 'nms_launches': launches,
-            'reset_equals_first_call': True,
-            'max_abs_diff_vs_joint_predictor': same_served(got, want)}
+    record = {'net': net, 'width_div': 8, 'convlstm_layers': DEEP_LAYERS,
+              'export_s': export_s / 1e3, 'artifact_mb': len(art) / 1e6,
+              'state_leaves': leaves, 'nms_launches': launches,
+              'reset_equals_first_call': True,
+              'max_abs_diff_vs_joint_predictor': same_served(got, want)}
+    return record, start_reload(art, [frames] * 3, tmp, device), got
 
 
 # ------------------------------------------------------------ parallel paths
@@ -2593,6 +2627,523 @@ def tensor_parallel_phase(device, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------ data-parallel flows
+DP_RANKS = 2             # gloo ranks on cuda:0: NCCL refuses two a device
+DP_TIMEOUT_S = 420
+DP_DET_B = 8             # the detector step's global batch
+DP_TINY_B = 4            # TrainConfig.batch_size, over T=4 of 13x13x1024
+DP_MOE_NET = 128         # the MoE repair at the train phase's reduced cut
+DP_MOE_B = 3             # ragged on 2 ranks: shard_batch replicates it
+DP_FLOW_FRAMES = 11      # one video: 8 windows of T=4, two batches of 4
+DP_COS, DP_RATIO = 0.999, 0.05   # the CPU tests' two-step bars
+# held to the one-rank step in float64: at 416² float32 BatchNorm lies up
+# to 6e-3 (relative L2 of a leaf's gradient) from float64 in either layout
+DP_REPORTED = ('detector_float32',)
+DP_RATE_STEPS = 5
+TINY_HEADS = {'bbox_bce': (False, 4), 'heatmap_bce': (True, 32 * 32)}
+
+
+def randomize_bn(model, seed: int):
+    """Every BatchNorm's scale and bias drawn as tests/torch_parity.py's
+    randomize_bn draws them (U(0.5, 1.5), N(0, 0.1)), so that Adam's
+    first step does not start from zero biases."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                               + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+    return model
+
+
+def dp_models() -> dict:
+    """name → (make_model(mesh), make_step(mesh), lr): Darknet-19 at
+    DetectorConfig() and the detector step, in float64 ('detector') and
+    float32; TinyTracker (LSTM-512, Global pool over 13x13x1024) with each
+    head of TINY_HEADS and the tiny step; the MoE joint model at the
+    reduced cut and its fused step."""
+    cfg = DetectorConfig()
+
+    def detector(dtype):
+        return lambda mesh=None: randomize_bn(init_like_flax(Darknet19(
+            cfg.num_classes, cfg.num_anchors, dtype, mesh=mesh), 0),
+            1).to(dtype)
+
+    def tiny(out_dim):
+        return lambda mesh=None: init_like_flax(TinyTracker(
+            (13, 13, 1024), lstm_units=512, out_dim=out_dim, pool='Global'),
+            0)
+
+    def moe(mesh=None):
+        return init_like_flax(MultiObjDetTracker(
+            num_classes=NUM_CLASSES, num_anchors=5, convlstm_features=64,
+            width_div=8, mesh=mesh, **MOE), 0)
+
+    def moe_step(mesh=None):
+        return make_joint_train_step_fused(
+            YOLOV2_ANCHORS, augment=False, net_h=DP_MOE_NET,
+            net_w=DP_MOE_NET, grid_h=DP_MOE_NET // 32,
+            grid_w=DP_MOE_NET // 32, num_classes=NUM_CLASSES,
+            true_box_buffer=MAX_BOXES, mesh=mesh)
+
+    def detector_step(mesh=None):
+        return make_detector_train_step(cfg.anchors, mesh=mesh)
+
+    out = {'detector': (detector(torch.float64), detector_step, DET_LR),
+           'detector_float32': (detector(torch.float32), detector_step,
+                                DET_LR)}
+    for name, (heatmap, out_dim) in TINY_HEADS.items():
+        out[name] = (tiny(out_dim), lambda mesh=None, h=heatmap:
+                     make_tiny_train_step(h, 'bce', mesh=mesh), TINY_LR)
+    out['moe_ragged'] = (moe, moe_step, TRAIN_LR)
+    return out
+
+
+def tiny_batch(seed: int, out_dim: int, heatmap: bool) -> dict:
+    """Seeded (B=4, T=4) features of 13x13x1024, detections and targets
+    (binary for the heatmap, in [0.2, 0.8] for the box)."""
+    rng = np.random.RandomState(seed)
+    b, t = DP_TINY_B, TRACK_T
+    target = (rng.rand(b, t, out_dim) > 0.9 if heatmap
+              else rng.rand(b, t, out_dim) * 0.6 + 0.2)
+    return {'feats': rng.rand(b, t, 13, 13, 1024).astype(np.float32),
+            'det': rng.rand(b, t, out_dim).astype(np.float32),
+            'target': target.astype(np.float32)}
+
+
+def dp_batches() -> dict:
+    """name → two global batches of that case."""
+    det = [detection_batch(500 + i, DP_DET_B) for i in range(2)]
+    out = {'detector': det, 'detector_float32': det,
+           'moe_ragged': [train_batch(510 + i, DP_MOE_B, net=DP_MOE_NET,
+                                      objects=4) for i in range(2)]}
+    for j, (name, (heatmap, out_dim)) in enumerate(TINY_HEADS.items()):
+        out[name] = [tiny_batch(520 + 2 * j + i, out_dim, heatmap)
+                     for i in range(2)]
+    return out
+
+
+def _lead(batch) -> int:
+    for key in ('images', 'feats', 'images_u8'):
+        if key in batch:
+            return int(batch[key].shape[0])
+    raise KeyError(sorted(batch))
+
+
+def dp_two_steps(case, batches, device, mesh=None) -> dict:
+    """Two train steps of `case` (from dp_models) on this rank's slice of
+    each global batch (shard_batch over `mesh`; the whole batch without):
+    each step's metrics and batch size and whether it was replicated, the
+    first step's gradients and the initial and final parameters (on the
+    host), and each parameter's float64 sum."""
+    from object_tracking_tpu_torch.parallel import is_replicated, shard_batch
+    make_model, make_step, lr = case
+    model = make_model(mesh).to(device)
+    state = TrainState.create(model, make_optimizer(lr))
+    step = make_step(mesh)
+    out = {'metrics': [], 'local_batch': [], 'replicated': [],
+           'initial': {k: p.detach().cpu().clone()
+                       for k, p in model.named_parameters()}}
+    for i, batch in enumerate(batches):
+        mine = batch if mesh is None else shard_batch(mesh, batch)
+        out['local_batch'].append(_lead(mine))
+        out['replicated'].append(is_replicated(mine))
+        state, metrics = step(state, mine)
+        out['metrics'].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out['grads'] = {k: p.grad.detach().cpu()
+                            for k, p in model.named_parameters()}
+    out['params'] = {k: p.detach().cpu() for k, p in
+                     model.named_parameters()}
+    out['initial_sums'] = [float(p.double().sum())
+                           for p in out['initial'].values()]
+    out['sums'] = [float(p.detach().double().sum())
+                   for p in model.parameters()]
+    return out
+
+
+def dp_errors(got: dict, ref: dict) -> dict:
+    """The first step's metrics (rtol 1e-4) and gradients (relative L2
+    per leaf) and the two-step update (cosine, norm ratio) of `got`
+    against `ref`, both from the same weights (`same_start`); `ok`
+    whether every bar holds."""
+    m1, r1 = got['metrics'][0], ref['metrics'][0]
+    names = sorted(ref['params'])
+    d = _update({k: got['params'][k] for k in names}, ref['initial'])
+    d_ref = _update(ref['params'], ref['initial'])
+    out = {'metrics_max_rel': max(abs(m1[k] - v) / max(abs(v), 1e-30)
+                                  for k, v in r1.items()),
+           'metrics_out_of_tol': [
+               k for k, v in r1.items()
+               if abs(m1[k] - v) > METRIC_ATOL + METRIC_RTOL * abs(v)],
+           'grads_rel_l2_max': max(rel_l2(got['grads'][k], v)
+                                   for k, v in ref['grads'].items()),
+           'update_cosine': float(d @ d_ref / (d.norm() * d_ref.norm())),
+           'update_norm_ratio': float(d.norm() / d_ref.norm()),
+           'same_start': got['initial_sums'] == ref['initial_sums']}
+    out['ok'] = (out['same_start'] and not out['metrics_out_of_tol']
+                 and out['grads_rel_l2_max'] <= LEAF_TOL
+                 and out['update_cosine'] > DP_COS
+                 and abs(out['update_norm_ratio'] - 1.0) < DP_RATIO)
+    return out
+
+
+def dp_flow_data():
+    """One seeded video of DP_FLOW_FRAMES frames at 416² (tracker_folder's
+    first), its objects labelled '1', the synthetic flow's label."""
+    frames, anns = tracker_folder(7)
+    keep = sorted(frames)[:DP_FLOW_FRAMES]
+    anns = [a for a in anns if a.filename in keep]
+    for a in anns:
+        a.objects[0].label = '1'
+    return {k: frames[k] for k in keep}, anns
+
+
+@contextlib.contextmanager
+def flow_on_arrays(frames: dict, anns: list, spy: dict):
+    """single_object_tracking's dataset I/O on arrays (the card's machine
+    has no cv2 and no libjpeg): `_synthetic_dirs` writes nothing,
+    `parse_annotation_dir` returns `anns` and TrackerSequenceBatches
+    reads `frames` by path. A spy on its train step keeps the parameters
+    before the first step and each step's batch size and replication."""
+    import functools
+    from object_tracking_tpu_torch import data, trainer, training
+    from object_tracking_tpu_torch.parallel import is_replicated
+    saved = (trainer._synthetic_dirs, data.parse_annotation_dir,
+             data.TrackerSequenceBatches, training.make_tiny_train_step)
+
+    def make_step(*args, **kw):
+        step = saved[3](*args, **kw)
+
+        def run(state, batch):
+            spy.setdefault('initial', {
+                k: p.detach().cpu().clone()
+                for k, p in state.model.named_parameters()})
+            spy.setdefault('local_batch', []).append(_lead(batch))
+            spy.setdefault('replicated', []).append(is_replicated(batch))
+            return step(state, batch)
+        return run
+
+    trainer._synthetic_dirs = lambda cfg, *args, **kw: cfg
+    data.parse_annotation_dir = lambda *args, **kw: (list(anns), {})
+    data.TrackerSequenceBatches = functools.partial(
+        TrackerSequenceBatches, loader=frames.__getitem__)
+    training.make_tiny_train_step = make_step
+    try:
+        yield
+    finally:
+        (trainer._synthetic_dirs, data.parse_annotation_dir,
+         data.TrackerSequenceBatches, training.make_tiny_train_step) = saved
+
+
+def dp_flow(device, workdir: str, rank: int = 0, n: int = 1) -> dict:
+    """single_object_tracking(synthetic=True), one epoch, over the
+    full-width YOLOv2 prior (seed 0, BatchNorm statistics from the
+    video's first 8 frames), on this rank of an n-rank world whose
+    process group is up (n > 1), or alone. Kernel 1 runs in the prior;
+    its launches are counted from 0 over the flow."""
+    from object_tracking_tpu_torch import trainer
+    from object_tracking_tpu_torch.config import Config
+    frames, anns = dp_flow_data()
+    cfg = Config()
+    cfg.detector = DetectorConfig(image_h=NET, image_w=NET,
+                                  grid_h=NET // 32, grid_w=NET // 32)
+    prior = YOLOv2Detector(cfg.detector, seed=0, device=device)
+    calibrate_bn(prior.model, torch.from_numpy(
+        np.stack([frames[k] for k in sorted(frames)[:8]])).to(device))
+    if n > 1:
+        cfg.mesh.distributed = True
+        cfg.mesh.num_processes, cfg.mesh.process_id = n, rank
+        cfg.mesh.data_parallel = n
+    spy = {}
+    with flow_on_arrays(frames, anns, spy):
+        cuda_nms.nms_scores.launches = 0
+        start = time.perf_counter()
+        state = trainer.single_object_tracking(
+            cfg, synthetic=True, epochs=1, workdir=workdir, detector=prior,
+            device=device)
+        torch.cuda.synchronize()
+        spy['seconds'] = time.perf_counter() - start
+        spy['nms_launches'] = cuda_nms.nms_scores.launches
+    spy['step'] = state.step
+    spy['params'] = {k: p.detach().cpu() for k, p in
+                     state.model.named_parameters()}
+    spy['sums'] = [float(p.detach().double().sum())
+                   for p in state.model.parameters()]
+    return spy
+
+
+def dp_rank(rank: int, n: int, out_dir: str, device: str) -> None:
+    """One rank of the data_parallel_flows phase's gloo world on `device`
+    (cuda:0 for every rank), mesh dp = n: every case of dp_models two
+    steps on its slice of the global batches, then the single-object flow.
+    Writes its results (rank 0 the steps' whole) or its traceback."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.parallel import make_mesh
+    entered = time.time()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device)
+        with open(Path(out_dir) / 'batches.pkl', 'rb') as f:
+            batches = pickle.load(f)
+        dist.init_process_group('gloo',
+                                init_method=f'file://{out_dir}/store',
+                                world_size=n, rank=rank)
+        mesh = make_mesh(MeshConfig(data_parallel=n))
+        ready = time.time()
+        steps = {}
+        for name, case in dp_models().items():
+            got = dp_two_steps(case, batches[name], device, mesh)
+            del got['initial']
+            if rank:
+                got = {k: got[k] for k in ('metrics', 'local_batch',
+                                           'replicated', 'sums')}
+            steps[name] = got
+        steps_s = time.time() - ready
+        flow = dp_flow(device, str(Path(out_dir) / 'flow'), rank, n)
+        if rank:
+            del flow['params'], flow['initial']
+        result = {'entered_at': entered, 'setup_s': ready - entered,
+                  'steps_s': steps_s, 'steps': steps, 'flow': flow}
+        dist.destroy_process_group()
+        kind = 'ok'
+    except BaseException:
+        result, kind = traceback.format_exc(), 'error'
+    with open(Path(out_dir) / f'rank{rank}.pkl', 'wb') as f:
+        pickle.dump((kind, result), f)
+
+
+def dp_world(batches: dict, device, out_dir: str) -> list:
+    """dp_rank on DP_RANKS spawned processes; every process is joined (or
+    killed at DP_TIMEOUT_S) before this returns or raises."""
+    import pickle
+    ctx = torch.multiprocessing.get_context('spawn')
+    started = time.time()
+    with open(Path(out_dir) / 'batches.pkl', 'wb') as f:
+        pickle.dump(batches, f)
+    procs = [ctx.Process(target=dp_rank,
+                         args=(r, DP_RANKS, out_dir, str(device)))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive:
+        raise AssertionError(f'data_parallel_flows: {len(alive)} ranks '
+                             f'still running after {DP_TIMEOUT_S} s: killed')
+    results = []
+    for r in range(DP_RANKS):
+        path = Path(out_dir) / f'rank{r}.pkl'
+        if not path.exists():
+            raise AssertionError(f'data_parallel_flows: rank {r} exited '
+                                 f'with {procs[r].exitcode} and no result')
+        with open(path, 'rb') as f:
+            kind, value = pickle.load(f)
+        if kind != 'ok':
+            raise AssertionError(f'data_parallel_flows rank {r}:\n{value}')
+        value['started_s'] = value.pop('entered_at') - started
+        results.append(value)
+    return results
+
+
+def dp_world_of_one(device, batches: dict) -> dict:
+    """A process group of one NCCL rank (tcp to localhost) and the (1, 1)
+    mesh over it: the data-parallel detector and tiny steps (BatchNorm
+    sums, loss shares, metrics and gradients all-reduced over the group
+    of one) against the plain steps from the same weights and batch, one
+    step each; then steps/s of each, the data-parallel and the plain step
+    in turn in this process, at lr 0 (median of three samples, all
+    kept), and each one's device profile. The group is destroyed
+    afterwards."""
+    import torch.distributed as dist
+    from object_tracking_tpu_torch.config import MeshConfig
+    from object_tracking_tpu_torch.parallel import distributed_init, make_mesh
+    config = MeshConfig(distributed=True, num_processes=1, process_id=0,
+                        coordinator_address=f'localhost:{free_port()}')
+    distributed_init(config, device)
+    models = dp_models()
+    out = {}
+    try:
+        if dist.get_backend() != ('nccl' if device.type == 'cuda'
+                                  else 'gloo'):
+            raise AssertionError(f'backend {dist.get_backend()}')
+        mesh = make_mesh(MeshConfig())
+        for name in ('detector_float32', 'bbox_bce'):
+            make_model, make_step, lr = models[name]
+            batch = batches[name][0]
+            states, metrics, rates = {}, {}, {}
+            for kind, on in (('plain', None), ('dp', mesh)):
+                states[kind] = TrainState.create(
+                    make_model(on).to(device), make_optimizer(lr))
+                _, metrics[kind] = make_step(on)(states[kind], batch)
+            torch.cuda.synchronize()
+            plain = dict(states['plain'].model.named_parameters())
+            dp = dict(states['dp'].model.named_parameters())
+            entry = {
+                'metrics_max_rel': max(
+                    abs(float(metrics['dp'][k]) - float(v))
+                    / max(abs(float(v)), 1e-30)
+                    for k, v in metrics['plain'].items()),
+                'grads_rel_l2_max': max(rel_l2(dp[k].grad, p.grad)
+                                        for k, p in plain.items()),
+                'params_rel_l2_max': max(rel_l2(dp[k].detach(), p.detach())
+                                         for k, p in plain.items())}
+            if (entry['metrics_max_rel'] > METRIC_RTOL
+                    or entry['grads_rel_l2_max'] > LEAF_TOL
+                    or entry['params_rel_l2_max'] > LEAF_TOL):
+                raise AssertionError(f'dp {name} vs plain: {entry}')
+            items = _lead(batch)
+            for kind, on in (('dp', mesh), ('plain', None)):
+                state = states[kind].with_learning_rate(0.0)
+                step = make_step(on)
+                median = put_rate(rates, f'steps_per_s_{kind}', rate(
+                    lambda s=state, f=step: f(s, batch), 1, DP_RATE_STEPS))
+                rates[f'profile_{kind}'] = breakdown(device_times(
+                    lambda s=state, f=step: f(s, batch), 2, state.model),
+                    1e3 / median, (('collectives', ('nccl',)),) + (
+                        TRAIN_CATEGORIES if name.startswith('detector')
+                        else TINY_CATEGORIES))
+            rates['dp_over_plain'] = (rates['steps_per_s_dp']
+                                      / rates['steps_per_s_plain'])
+            out[name] = {'batch': items, 'vs_plain': entry, **rates,
+                         'tolerance': {'metrics_rtol': METRIC_RTOL,
+                                       'rel_l2': LEAF_TOL}}
+            del states
+            gc.collect()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def data_parallel_phase(device, smi: str) -> dict:
+    """The single-object and detector training flows' data parallelism on
+    the card: the steps at world size 1 over NCCL against the plain steps
+    (and their steps/s), then over DP_RANKS gloo ranks on the card, each
+    holding half of each global batch, against the one-rank step on the
+    card at the CPU tests' bars; the MoE head on a ragged (replicated)
+    batch against the one-rank MoE step; single_object_tracking over the
+    ranks, kernel 1 in its prior, against the one-rank flow."""
+    start = time.perf_counter()
+    batches = dp_batches()
+    out = {'phase': 'data_parallel_flows', 'ranks': DP_RANKS,
+           'device_per_rank': str(device),
+           'collectives': 'gloo, on the CUDA tensors',
+           'shapes': {'detector': {'net': NET, 'classes': 80,
+                                   'B': DP_DET_B,
+                                   'dtype': 'float64, and float32 reported'},
+                      'tiny': {'B': DP_TINY_B, 'T': TRACK_T,
+                               'feature': [13, 13, 1024],
+                               'lstm_units': 512},
+                      'moe_ragged': {'net': DP_MOE_NET, 'width_div': 8,
+                                     'B': DP_MOE_B, **MOE},
+                      'flow': {'frames': DP_FLOW_FRAMES, 'T': TRACK_T,
+                               'B': TRACK_B, 'prior': f'YOLOv2 {NET}²'}},
+           'tolerance': {'metrics_rtol': METRIC_RTOL, 'rel_l2': LEAF_TOL,
+                         'cosine': DP_COS, 'norm_ratio': DP_RATIO}}
+    out['world_of_one_nccl'] = dp_world_of_one(device, batches)
+    refs = {name: dp_two_steps(case, batches[name], device)
+            for name, case in dp_models().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_flow = dp_flow(device, str(Path(tmp) / 'one_rank'))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = dp_world(batches, device, tmp)
+        flow_dir = Path(tmp) / 'flow'
+        written = {'logs': sorted(os.listdir(flow_dir / 'logs')),
+                   'checkpoints': sorted(os.listdir(
+                       flow_dir / 'models' / 'tiny_tracker'))}
+    out['rank_seconds'] = [{k: r[k] for k in ('started_s', 'setup_s',
+                                              'steps_s')} for r in ranks]
+    steps = {}
+    for name, ref in refs.items():
+        whole = [_lead(b) for b in batches[name]]
+        got = ranks[0]['steps'][name]
+        if name in DP_REPORTED:
+            f64 = refs['detector']['grads']
+            steps[name] = {
+                **dp_errors(got, ref),
+                'one_rank_vs_float64_grads_rel_l2_max': max(
+                    rel_l2(ref['grads'][k], v) for k, v in f64.items()),
+                'two_ranks_vs_float64_grads_rel_l2_max': max(
+                    rel_l2(got['grads'][k], v) for k, v in f64.items()),
+                'ranks_agree': all(r['steps'][name]['sums'] == got['sums']
+                                   for r in ranks),
+                'held_to': 'reported: the bars hold in float64 (detector)'}
+            continue
+        entry = {'global_batch': whole,
+                 'local_batch': [r['steps'][name]['local_batch']
+                                 for r in ranks],
+                 'replicated': [r['steps'][name]['replicated']
+                                for r in ranks],
+                 'ranks_agree': all(r['steps'][name]['sums'] == got['sums']
+                                    for r in ranks),
+                 **dp_errors(got, ref)}
+        ragged = whole[0] % DP_RANKS != 0
+        want = whole if ragged else [b // DP_RANKS for b in whole]
+        if (not entry['ok'] or not entry['ranks_agree']
+                or any(lb != want for lb in entry['local_batch'])
+                or any(rep != [ragged] * 2 for rep in entry['replicated'])):
+            raise AssertionError(f'data parallel {name}: {entry}')
+        if name == 'moe_ragged':
+            entry['moe_aux'] = [got['metrics'][0]['moe_aux'],
+                                ref['metrics'][0]['moe_aux']]
+        steps[name] = entry
+    out['two_ranks_vs_one_rank'] = steps
+
+    flows = [r['flow'] for r in ranks]
+    mine = flows[0]
+    names = sorted(ref_flow['params'])
+    d = _update({k: mine['params'][k] for k in names}, mine['initial'])
+    d_ref = _update(ref_flow['params'], ref_flow['initial'])
+    flow = {'steps': [f['step'] for f in flows],
+            'one_rank_steps': ref_flow['step'],
+            'local_batch': [f['local_batch'] for f in flows],
+            'one_rank_batch': ref_flow['local_batch'],
+            'replicated': [f['replicated'] for f in flows],
+            'ranks_agree': all(f['sums'] == mine['sums'] for f in flows),
+            'same_start': all(torch.equal(mine['initial'][k],
+                                          ref_flow['initial'][k])
+                              for k in names),
+            'update_cosine': float(d @ d_ref / (d.norm() * d_ref.norm())),
+            'update_norm_ratio': float(d.norm() / d_ref.norm()),
+            'nms_launches_ranks': [f['nms_launches'] for f in flows],
+            'nms_launches_one_rank': ref_flow['nms_launches'],
+            'seconds_ranks': [f['seconds'] for f in flows],
+            'seconds_one_rank': ref_flow['seconds'],
+            'written_by_rank_0': written}
+    half = [b // DP_RANKS for b in ref_flow['local_batch']]
+    if (not flow['ranks_agree'] or not flow['same_start']
+            or flow['steps'] != [ref_flow['step']] * DP_RANKS
+            or ref_flow['step'] < 2
+            or any(lb != half for lb in flow['local_batch'])
+            or any(any(rep) for rep in flow['replicated'])
+            or flow['update_cosine'] <= DP_COS
+            or abs(flow['update_norm_ratio'] - 1.0) >= DP_RATIO
+            or min(flow['nms_launches_ranks']) == 0
+            or len(set(flow['nms_launches_ranks'])) != 1
+            or written != {'logs': ['run_1'],
+                           'checkpoints': ['ckpt_1.json', 'ckpt_1.pt']}):
+        raise AssertionError(f'data-parallel single-object flow: {flow}')
+    out['single_object_flow'] = flow
+    out['nms_launches'] = {
+        'dp_single_object_flow_ranks': sum(flow['nms_launches_ranks']),
+        'dp_single_object_flow_one_rank': ref_flow['nms_launches']}
+    out['phase_s'] = time.perf_counter() - start
+    out['card'] = smi
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -2661,6 +3212,9 @@ def main() -> int:
     tp = tensor_parallel_phase(device, smi)
     emit(tp)
     took('tensor_parallel')
+    dp = data_parallel_phase(device, smi)
+    emit(dp)
+    took('data_parallel_flows')
     emit({'phase_seconds': seconds, 'total_s': time.perf_counter() - start})
 
     nms_launches = {'joint_path': path['nms_launches'],
@@ -2673,7 +3227,8 @@ def main() -> int:
                     **served['nms_launches'],
                     'moe_head_predict':
                         parallel['moe_predict']['nms_launches'],
-                    'tensor_parallel_serve': tp['serve']['nms_launches']}
+                    'tensor_parallel_serve': tp['serve']['nms_launches'],
+                    **dp['nms_launches']}
     not_driven = {}
     if native['available']:
         nms_launches['native_decode_golden'] = \

@@ -17,7 +17,8 @@ conv reshaped to (H/32, W/32, A, 5+C).
 - `space_to_depth_2x` orders channels (di, dj, c), as tf.space_to_depth
   does — not `F.pixel_unshuffle`'s (c, di, dj).
 - With a `mesh`, batch statistics span the data group: each rank holds a
-  share of the global batch, as under JAX's sharded `jit`.
+  share of the global batch, as under JAX's sharded `jit` (none inside
+  `parallel.mesh.whole_batch()`, where each rank holds all of it).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 
 from object_tracking_tpu_torch.parallel.collectives import (
     all_reduce_sum, group_size)
+from object_tracking_tpu_torch.parallel.mesh import in_whole_batch
 from object_tracking_tpu_torch.parallel.sharding import (
     column_conv, column_operands, held)
 
@@ -115,7 +117,8 @@ class BatchNorm(nn.Module):
     statistics: the mean and E[x²] of the global batch, as flax computes
     them under a sharded `jit`. Neither plain DDP (per-rank statistics)
     nor `SyncBatchNorm` (an unbiased variance in the running statistics)
-    computes that.
+    computes that. Inside `parallel.mesh.whole_batch()` the group is
+    left out: every rank holds the whole batch.
     """
 
     momentum = 0.99
@@ -137,14 +140,15 @@ class BatchNorm(nn.Module):
         else:
             dims = (0, 2, 3)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            if self.group is None:
+            group = None if in_whole_batch() else self.group
+            if group is None:
                 mean = xf.mean(dim=dims)
                 sq = torch.square(xf).mean(dim=dims)
             else:
-                count = xf.numel() // xf.shape[1] * group_size(self.group)
+                count = xf.numel() // xf.shape[1] * group_size(group)
                 sums = all_reduce_sum(torch.stack(
                     [xf.sum(dim=dims), torch.square(xf).sum(dim=dims)]),
-                    self.group)
+                    group)
                 mean, sq = sums[0] / count, sums[1] / count
             var = torch.clamp_min(sq - torch.square(mean), 0.0)
             if self.training:

@@ -224,12 +224,14 @@ class DarknetCfgNet(nn.Module):
     (B, GH, GW, A, 5+C) netout per head], 'final': last activation
     (B, H', W', C')}, all float32. `dtype` is the activation type;
     parameters stay float32 and are cast at each conv. The per-head anchor
-    and class metadata is `head_specs(self.plan)`.
+    and class metadata is `head_specs(self.plan)`. With a `mesh`
+    (`parallel.mesh.Mesh`) every BatchNorm's statistics span its data
+    group; the state_dict's names are the same.
     """
 
     def __init__(self, plan: Tuple[LayerPlan, ...],
                  in_hwc: Tuple[int, int, int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.plan = plan
         self.in_hwc = in_hwc
@@ -242,7 +244,9 @@ class DarknetCfgNet(nn.Module):
                 self.add_module(f'conv_{i}', nn.Conv2d(
                     cin, filters, size, stride, bias=not bn))
                 if bn:
-                    self.add_module(f'norm_{i}', BatchNorm(filters))
+                    self.add_module(f'norm_{i}', BatchNorm(
+                        filters,
+                        group=None if mesh is None else mesh.data_group))
             cin = shapes[i][2]
 
     def forward(self, images: torch.Tensor, train: bool = False):
@@ -308,11 +312,13 @@ class RegionNetout(nn.Module):
         return {'netout': self.net(images, train=train)['heads'][0]}
 
 
-def build_from_cfg(cfg_text: str, dtype: torch.dtype = torch.float32
+def build_from_cfg(cfg_text: str, dtype: torch.dtype = torch.float32,
+                   mesh=None
                    ) -> Tuple[DarknetCfgNet, Tuple[int, int, int]]:
-    """cfg text → (torch module, (H, W, C) input geometry)."""
+    """cfg text → (torch module, (H, W, C) input geometry); `mesh` as
+    DarknetCfgNet's."""
     in_hwc, plan = compile_cfg(parse_darknet_cfg(cfg_text))
-    return DarknetCfgNet(plan, in_hwc, dtype), in_hwc
+    return DarknetCfgNet(plan, in_hwc, dtype, mesh), in_hwc
 
 
 # --------------------------------------------------------------------------
@@ -460,18 +466,20 @@ class CfgDetector:
     decode and NMS on the detector's device ('cuda' unless the caller
     passes `device='cpu'`; a missing card raises). Works for yolov2,
     yolov2-tiny and yolov3-family cfgs. `detect_images` is the body of
-    `detect` on arrays; only image paths and drawing need `cv2`.
+    `detect` on arrays; only image paths and drawing need `cv2`. `mesh`
+    spans the module's batch statistics over its data group, for
+    data-parallel training.
     """
 
     def __init__(self, cfg: str, weights_path: Optional[str] = None,
                  labels: Optional[Sequence[str]] = None,
                  obj_threshold: float = 0.5, nms_threshold: float = 0.45,
                  seed: int = 0, dtype: torch.dtype = torch.float32,
-                 device='cuda'):
+                 device='cuda', mesh=None):
         text = open(cfg).read() if os.path.exists(cfg) else cfg
         self.device = resolve_device(device)
-        self.module, (h, w, _) = seeded(seed,
-                                        lambda: build_from_cfg(text, dtype))
+        self.module, (h, w, _) = seeded(
+            seed, lambda: build_from_cfg(text, dtype, mesh))
         self.specs = head_specs(self.module.plan)
         if not self.specs:
             raise ValueError('cfg has no [region]/[yolo] head')

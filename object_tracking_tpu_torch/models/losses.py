@@ -22,6 +22,9 @@ With a data `group` (each rank a share of the global batch) the box
 counts that normalise the terms are summed over the group, so that each
 rank's terms are its share of the global loss (the shares sum to it) and
 the recall is the global one: a mean of per-rank losses is another loss.
+`binary_crossentropy` and `heatmap_accuracy` take the group alike: each
+rank's BCE is its local sum over the global element count, and the
+accuracy is the global one.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from object_tracking_tpu_torch.parallel.collectives import all_reduce_sum_
+from object_tracking_tpu_torch.parallel.collectives import (
+    all_reduce_sum_, group_size)
 
 EPS = 1e-6
 
@@ -156,17 +160,30 @@ def yolo_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
     return loss, aux
 
 
+def global_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """mean(x) over the global batch, as this rank's share: the local sum
+    over the global element count (every rank holds as many elements)."""
+    if group is None:
+        return torch.mean(x)
+    return torch.sum(x) / (x.numel() * group_size(group))
+
+
 def binary_crossentropy(y_pred: torch.Tensor, y_true: torch.Tensor,
-                        eps: float = 1e-7) -> torch.Tensor:
-    """Keras-style BCE on probabilities, mean over all elements."""
+                        eps: float = 1e-7, group=None) -> torch.Tensor:
+    """Keras-style BCE on probabilities, mean over all elements. With a
+    data `group`, this rank's share of the global mean."""
     p = torch.clamp(y_pred.float(), eps, 1.0 - eps)
     t = y_true.float()
-    return -torch.mean(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
+    return -global_mean(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p),
+                         group)
 
 
 def heatmap_accuracy(y_pred: torch.Tensor, y_true: torch.Tensor,
-                     eps: float = 1e-7) -> torch.Tensor:
-    """Mean fraction of GT-on cells predicted on."""
+                     eps: float = 1e-7, group=None) -> torch.Tensor:
+    """Mean fraction of GT-on cells predicted on. With a data `group`, the
+    global batch's value on every rank (a metric: no gradient)."""
     positive = torch.sum(y_true * y_pred, dim=-1)
     total = torch.sum(y_true, dim=-1)
-    return torch.mean(positive / (total + eps))
+    share = global_mean(positive / (total + eps), group)
+    return share if group is None else all_reduce_sum_(share.detach(),
+                                                       group)

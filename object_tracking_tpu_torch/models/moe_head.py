@@ -68,7 +68,9 @@ class MoEGridHead(nn.Module):
         compute dtype / float32. With a data `group` the tokens are this
         rank's share of the global token order (`segments` runs, see
         `parallel.expert._route`) and aux is this rank's share of the
-        global auxiliary loss."""
+        global auxiliary loss. Tokens every rank holds alike (a
+        replicated batch) come with no group: one routing group of
+        theirs, in their own order."""
         *lead, d = z.shape
         params = {k: held(self, k).to(self.dtype) for k in self.tp_leaves}
         tokens = z.reshape(-1, d).to(self.dtype)

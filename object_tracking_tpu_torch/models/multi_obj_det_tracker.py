@@ -17,7 +17,9 @@ global batch, along B, or along T when `time_shards` > 1 (sequence
 parallelism: the first ConvLSTM layer's recurrence runs through the
 context-parallel ring over the data axis). BatchNorm statistics and the
 MoE routing then span the data group, and 'moe_aux' is this rank's share
-of the global auxiliary loss. `pp_layers` runs the stacked layers as a
+of the global auxiliary loss; inside `parallel.mesh.whole_batch()` (a
+batch that `shard_batch` replicated: every rank holds all of it) they are
+this rank's own, the one-rank model's. `pp_layers` runs the stacked layers as a
 pipeline over the model axis (one layer per rank).
 
 The flat netout's channel is a·(5+C)+k in both frameworks, so the NCHW
@@ -45,17 +47,21 @@ from object_tracking_tpu_torch.models.convlstm import (
     FusedConvLSTM, StackedConvLSTM)
 from object_tracking_tpu_torch.models.darknet19 import Darknet19, conv
 from object_tracking_tpu_torch.models.moe_head import MoEGridHead
+from object_tracking_tpu_torch.parallel.mesh import (
+    in_whole_batch, whole_batch)
 
 
 @contextlib.contextmanager
-def _in_eval_mode(module: nn.Module):
-    """`module` in eval() mode for the block: the recomputation under
-    `remat` normalises as the forward did and writes no running
+def _recomputing(module: nn.Module, whole: bool):
+    """`module` in eval() mode for the block, and `whole_batch(whole)` as
+    the forward had it: the recomputation under `remat` (which may run on
+    another thread) normalises as the forward did and writes no running
     statistic a second time."""
     was = module.training
     module.train(False)
     try:
-        yield
+        with whole_batch() if whole else contextlib.nullcontext():
+            yield
     finally:
         module.train(was)
 
@@ -128,8 +134,8 @@ class MultiObjDetTracker(nn.Module):
         if self.remat and torch.is_grad_enabled():
             head, feat = checkpoint(
                 self.detector.features, flat, train, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    _in_eval_mode(self.detector)))
+                context_fn=lambda: (contextlib.nullcontext(), _recomputing(
+                    self.detector, in_whole_batch())))
         else:
             head, feat = self.detector.features(flat, train)
         _, out_ch, gh, gw = head.shape

@@ -17,7 +17,8 @@ of the NMS kernel per call).
   standalone detector step (`training/steps.py::make_detector_train_step`
   with anchors `VGG_DET_ANCHOR`): `det_apply(images, train)` →
   {'netout': det_netout}, sharing the source's parameters. VGG16 has no
-  BatchNorm, so `train` changes nothing.
+  BatchNorm, so `train` changes nothing, and the data-parallel step needs
+  nothing of it beyond the step's own group (the loss and the gradients).
 """
 
 from __future__ import annotations

@@ -61,17 +61,20 @@ def rerandomize_head(module: torch.nn.Module, generator: torch.Generator,
 
 class YOLOv2Detector:
     """Stateful convenience wrapper around the Darknet19 module (in
-    `self.model`, with running BatchNorm statistics)."""
+    `self.model`, with running BatchNorm statistics). With a `mesh`
+    (`parallel.mesh.Mesh`) the module's batch statistics span its data
+    group, for data-parallel training."""
 
     def __init__(self, config: Optional[DetectorConfig] = None,
                  seed: int = 0, dtype: torch.dtype = torch.float32,
-                 device='cuda', nms_impl: str = 'auto'):
+                 device='cuda', nms_impl: str = 'auto', mesh=None):
         self.config = config or DetectorConfig()
         cfg = self.config
         self.device = resolve_device(device)
         self.nms_impl = nms_impl
         self.model = seeded(seed, lambda: Darknet19(
-            cfg.num_classes, cfg.num_anchors, dtype, cfg.width_div))
+            cfg.num_classes, cfg.num_anchors, dtype, cfg.width_div,
+            mesh=mesh))
         self.model = self.model.to(self.device).eval()
         self.anchors = torch.tensor(cfg.anchors, dtype=torch.float32,
                                     device=self.device)

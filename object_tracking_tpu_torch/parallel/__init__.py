@@ -10,8 +10,9 @@ collectives carry JAX's autograd rules (`collectives.py`).
 """
 
 from object_tracking_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh, make_mesh, data_sharding, distributed_init, replicated_sharding,
-    shard_batch, local_batch_size,
+    Mesh, ShardedBatch, make_mesh, data_sharding, distributed_init,
+    is_replicated, replicated_sharding, shard_batch, local_batch_size,
+    whole_batch,
 )
 from object_tracking_tpu_torch.parallel.context import (  # noqa: F401
     context_parallel_scan,

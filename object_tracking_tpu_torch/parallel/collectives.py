@@ -210,6 +210,20 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _AllToAll.apply(x, group)
 
 
+def average_gradients_(params: List[torch.nn.Parameter],
+                       group: Optional[object]) -> None:
+    """Mean of every parameter's gradient over `group`, whose ranks each
+    computed the same gradient (a replicated batch): the card's
+    reductions may differ in the last bits from rank to rank, and the
+    mean leaves every rank on the same weights."""
+    if group is None:
+        return
+    sum_gradients_(params, group)
+    for p in params:
+        if p.grad is not None:
+            p.grad.div_(group_size(group))
+
+
 def sum_gradients_(params: List[torch.nn.Parameter],
                    group: Optional[object]) -> None:
     """Sum every parameter's gradient over `group`, in one collective per

@@ -12,7 +12,11 @@ JAX's.
   group's tokens) it routes the global token order: a rank's slots are
   offset by the per-expert counts of the tokens before its own, the
   capacity comes from the global token count, and the auxiliary loss's
-  means are global.
+  means are global. A rank that holds every token (a batch that
+  `mesh.shard_batch` replicated) routes them with no group, as one group
+  of its own tokens in their own order, as JAX routes a replicated
+  input: the steps run such a batch inside `mesh.whole_batch()`, where
+  the data axis has no group.
 - `expert_parallel_moe`: one expert per rank of a group; tokens are
   sharded, and dispatch and combine hop ranks with an all_to_all. It
   equals `moe_apply(num_groups=group size)` on the concatenated tokens.

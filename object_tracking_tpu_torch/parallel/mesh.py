@@ -14,15 +14,24 @@ world out as a (data, model) `DeviceMesh`:
   collective of the parallel paths is the identity;
 - `shard_batch`: every rank builds the same global host batch from the
   same seed and keeps its own slice along `axis` (the counterpart of
-  `jax.device_put` with a data-sharded spec); a ragged axis replicates.
+  `jax.device_put` with a data-sharded spec); a ragged axis replicates,
+  and the batch says so (`ShardedBatch.replicated`).
 
 The steps then keep the global-batch semantics of JAX's sharded `jit`
 (training/steps.py): BatchNorm statistics, the loss normalisers and the
 MoE routing span the data group, and the gradients are summed over it.
+A replicated batch is the whole global batch on every rank, so its step
+runs as the one-rank step inside `whole_batch(replicas)`: the data axis
+has no group there (`Mesh.group`, `in_whole_batch`), and every rank
+computes the whole batch's update, as GSPMD does for a replicated input
+(the steps average the replicas' gradients, `replica_group`, so that the
+card's reductions leave every rank on the same bits).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import logging
 import os
 from typing import Dict, Optional, Tuple
@@ -89,7 +98,8 @@ class Mesh:
         self.device_mesh = device_mesh
 
     def group(self, axis: str):
-        if self.device_mesh is None:
+        if self.device_mesh is None or (
+                axis == self.axis_names[0] and in_whole_batch()):
             return None
         return self.device_mesh.get_group(axis)
 
@@ -176,40 +186,96 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+class ShardedBatch(dict):
+    """A dict batch as `shard_batch` returns it. `replicated` is True when
+    every rank holds the whole global batch (a ragged axis), False when
+    each holds its slice: the steps read it on the host, before they run,
+    to choose their route."""
+
+    replicated = False
+
+
+def is_replicated(batch) -> bool:
+    """True for a batch that `shard_batch` left whole on every rank."""
+    return bool(getattr(batch, 'replicated', False))
+
+
 def shard_batch(mesh: Mesh, tree, axis: int = 0):
     """This rank's slice of a host pytree of the global batch: `axis` is
     split over `data` into equal blocks, block i on the ranks with data
     index i. axis=0 shards the batch (data parallelism); axis=1 the time
     axis of (B, T, ...) clips (sequence parallelism, with a model built
-    with time_shards > 1).
+    with time_shards > 1). A leaf with no such axis stays whole.
 
-    An axis that the data size does not divide (or a leaf with no such
-    axis) replicates: every rank keeps the whole leaf. That costs dp× the
-    memory and transfer, so it warns once per shape.
+    If the data size does not divide `axis` of some leaf, the batch
+    replicates: every rank keeps every leaf whole. That costs dp× the
+    memory and transfer, so it warns once per shape. A dict comes back as
+    a `ShardedBatch`, whose `replicated` tells the steps which it was.
     """
     dp = mesh.shape[mesh.axis_names[0]]
     i = mesh.index(mesh.axis_names[0])
-
-    def take(x):
-        x = x if isinstance(x, torch.Tensor) else np.asarray(x)
-        if x.ndim > axis and x.shape[axis] % dp == 0:
-            per = x.shape[axis] // dp
-            index = (slice(None),) * axis + (slice(i * per, (i + 1) * per),)
-            return x[index]
-        key = (tuple(x.shape), axis, dp)
+    tree = _map(lambda x: x if isinstance(x, torch.Tensor)
+                else np.asarray(x), tree)
+    ragged = [tuple(x.shape) for x in _leaves(tree)
+              if x.ndim > axis and x.shape[axis] % dp]
+    for shape in ragged:
+        key = (shape, axis, dp)
         if key not in _REPLICATION_WARNED:
             _REPLICATION_WARNED.add(key)
             logging.getLogger(__name__).warning(
                 'shard_batch: axis %d of %s not divisible by data axis %d '
                 '— replicating (a %dx memory/transfer cliff); pad or drop '
-                'the ragged batch to restore sharding', axis, tuple(x.shape),
-                dp, dp)
-        return x
+                'the ragged batch to restore sharding', axis, shape, dp, dp)
 
-    return _map(take, tree)
+    def take(x):
+        if ragged or x.ndim <= axis:
+            return x
+        per = x.shape[axis] // dp
+        return x[(slice(None),) * axis + (slice(i * per, (i + 1) * per),)]
+
+    out = _map(take, tree)
+    if isinstance(out, dict):
+        out = ShardedBatch(out)
+        out.replicated = bool(ragged)
+    return out
 
 
 _REPLICATION_WARNED: set = set()
+
+# (replicas,) while a step runs on a replicated batch: see `whole_batch`
+_WHOLE_BATCH = contextvars.ContextVar('whole_batch', default=None)
+
+
+@contextlib.contextmanager
+def whole_batch(replicas=None):
+    """Within the block every rank of the data group `replicas` (None: one
+    process) holds the whole global batch: the data axis of every mesh
+    has no group (`Mesh.group`, `in_whole_batch`), so BatchNorm, the
+    losses and the MoE routing compute the one-rank step on each rank.
+    The model axis keeps its groups."""
+    token = _WHOLE_BATCH.set((replicas,))
+    try:
+        yield
+    finally:
+        _WHOLE_BATCH.reset(token)
+
+
+def in_whole_batch() -> bool:
+    return _WHOLE_BATCH.get() is not None
+
+
+def replica_group():
+    """Inside `whole_batch(replicas)`, `replicas`; else None."""
+    state = _WHOLE_BATCH.get()
+    return None if state is None else state[0]
 
 
 def is_writer() -> bool:

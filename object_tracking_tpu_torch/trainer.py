@@ -15,12 +15,15 @@ passes `device='cpu'`; a missing card raises). With
 `cfg.mesh.distributed` (its address, process count and id, or
 `torchrun`'s environment) the training flows join a process group (NCCL
 on the card, gloo on the CPU) and lay the ranks out
-as `cfg.mesh`'s (data, model) mesh: the joint flow trains data-parallel
-on the global batch (each rank a slice of it; along time with
-`joint.time_shards` > 1), with the MoE head, pipeline-parallel stacked
-layers (`joint.pp_layers`) and sequence parallelism as configured; the
-single-object and detector flows run the whole batch on every rank.
-Only rank 0 writes logs and checkpoints. `synthetic=True` fabricates a
+as `cfg.mesh`'s (data, model) mesh. Every training flow trains
+data-parallel on the global batch: each rank builds it and keeps its
+slice (`parallel.shard_batch`; along time with `joint.time_shards` > 1),
+BatchNorm statistics, losses and gradients stay the global batch's, and
+a ragged batch is replicated and runs as the one-rank step on every
+rank. The joint flow adds the MoE head, pipeline-parallel stacked layers
+(`joint.pp_layers`) and sequence parallelism as configured; the
+single-object flow's frozen prior runs unsharded on each rank's global
+batch. Only rank 0 writes logs and checkpoints. `synthetic=True` fabricates a
 small dataset first. `main` is the command line:
 
     python -m object_tracking_tpu_torch.trainer [--device cpu] <command>
@@ -181,7 +184,7 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
     if synthetic:
         labels = ('1',)
         cfg = _synthetic_dirs(cfg, (128, 128), labels, workdir=workdir)
-    logs, models_dir, _, _ = _common_setup(cfg, workdir, device)
+    logs, models_dir, mesh, shard_fn = _common_setup(cfg, workdir, device)
     if detector is None:
         detector = _prior_source(cfg, labels, synthetic, device)
     feature_layer = _feature_layer(cfg, detector)
@@ -220,11 +223,13 @@ def single_object_tracking(cfg, *, synthetic: bool = False,
         cfg, logs, os.path.join(models_dir, 'tiny_tracker'), joint=False)
     state, at = _resume(cfg, ckpts, state)
     loss_name = cfg.tracker.loss
-    state = fit(state, make_tiny_train_step(heatmap, loss_name), train_gen,
-                eval_step=make_tiny_eval_step(heatmap, loss_name),
+    state = fit(state, make_tiny_train_step(heatmap, loss_name, mesh),
+                train_gen,
+                eval_step=make_tiny_eval_step(heatmap, loss_name, mesh),
                 val_batches=val_gen,
                 epochs=at + (epochs or cfg.train.max_epochs),
-                initial_epoch=at, logger=logger, checkpoints=ckpts,
+                initial_epoch=at, shard_fn=shard_fn, logger=logger,
+                checkpoints=ckpts,
                 early_stopping=early, reduce_lr=reduce_lr,
                 log_every_steps=cfg.train.log_every_steps,
                 checkpoint_every=cfg.train.checkpoint_every_epochs)
@@ -401,9 +406,10 @@ def simult_multi_obj_detection_tracking(cfg, *, synthetic: bool = False,
     return state
 
 
-def _cfg_detector(cfg, labels, device, weights: bool = True):
-    """CfgDetector of cfg.detector.cfg_path. Unchanged default (COCO)
-    labels leave the class names to the cfg's class count."""
+def _cfg_detector(cfg, labels, device, weights: bool = True, mesh=None):
+    """CfgDetector of cfg.detector.cfg_path (its BatchNorm over `mesh`'s
+    data group). Unchanged default (COCO) labels leave the class names to
+    the cfg's class count."""
     from object_tracking_tpu_torch.config import LABELS_COCO
     from object_tracking_tpu_torch.models import CfgDetector
     if labels == LABELS_COCO:
@@ -414,7 +420,7 @@ def _cfg_detector(cfg, labels, device, weights: bool = True):
                        labels=labels or None,
                        obj_threshold=cfg.detector.obj_threshold,
                        nms_threshold=cfg.detector.nms_threshold,
-                       device=device)
+                       device=device, mesh=mesh)
 
 
 def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
@@ -435,15 +441,23 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
     from one forward (the JAX flow encodes a [region] head's targets at
     size/32, which fails for a cfg of another stride). A detector
     without loaded weights starts from flax's init. Unlike the JAX flow,
-    cfg.train.resume restores the latest checkpoint here too.
+    cfg.train.resume restores the latest checkpoint here too. Training
+    joins the process group first, so that the detector is built over the
+    mesh (BatchNorm over its data group), and each rank trains on its
+    slice of the global batch.
     """
     from object_tracking_tpu_torch.models import YOLOv2Detector
 
     device = resolve_device(device)
+    mesh = shard_fn = None
+    if train or synthetic:
+        logs, models_dir, mesh, shard_fn = _common_setup(cfg, workdir,
+                                                         device)
     if cfg.detector.cfg_path:
-        detector = _cfg_detector(cfg, cfg.detector.labels, device)
+        detector = _cfg_detector(cfg, cfg.detector.labels, device,
+                                 mesh=mesh)
     else:
-        detector = YOLOv2Detector(cfg.detector, device=device)
+        detector = YOLOv2Detector(cfg.detector, device=device, mesh=mesh)
     results = {}
     for path in images:
         out = os.path.join(
@@ -472,12 +486,13 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
         cfg = _synthetic_dirs(cfg, (size, size), labels, workdir=workdir)
         loaded = False
         if cfg.detector.cfg_path:
-            detector = _cfg_detector(cfg, labels, device, weights=False)
+            detector = _cfg_detector(cfg, labels, device, weights=False,
+                                     mesh=mesh)
         else:
             detector = YOLOv2Detector(DetectorConfig(
                 labels=labels, image_h=size, image_w=size,
                 grid_h=size // 32, grid_w=size // 32,
-                width_div=cfg.detector.width_div), device=device)
+                width_div=cfg.detector.width_div), device=device, mesh=mesh)
     heads = None
     grid = (size // 32, size // 32)
     if cfg.detector.cfg_path:
@@ -499,7 +514,6 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
         model = detector.model
     if not loaded:
         init_like_flax(model, cfg.train.seed)
-    logs, models_dir, _, _ = _common_setup(cfg, workdir, device)
     anns, _ = parse_annotation_dir(
         cfg.train.train_annot_folder, cfg.train.train_image_folder,
         labels, cache_dir=cfg.train.annotation_cache_dir or None)
@@ -517,13 +531,14 @@ def keras_yolo_obj_detection(cfg, *, images=(), out_dir: str = '.',
         cfg, logs, os.path.join(models_dir, 'yolov2'), joint=False)
     state, at = _resume(cfg, ckpts, state)
     if heads is not None:
-        train_step = make_multihead_detector_train_step(heads, (size, size),
-                                                        cfg.loss)
+        train_step = make_multihead_detector_train_step(
+            heads, (size, size), cfg.loss, mesh=mesh)
     else:
-        train_step = make_detector_train_step(anchors, cfg.loss)
+        train_step = make_detector_train_step(anchors, cfg.loss, mesh=mesh)
     state = fit(state, train_step, gen,
                 epochs=at + (epochs or cfg.train.max_epochs),
-                initial_epoch=at, logger=logger, checkpoints=ckpts,
+                initial_epoch=at, shard_fn=shard_fn, logger=logger,
+                checkpoints=ckpts,
                 early_stopping=early, reduce_lr=reduce_lr)
     if logger:
         logger.close()

@@ -21,13 +21,21 @@ its configuration and returns `step(state, batch)`. A train step returns
   of `TinyTracker(feats, det)` against the target, plus the heatmap
   accuracy for the heatmap head.
 
-The joint steps take the `mesh` the model was built with. Each rank of its
-data group then holds a share of the global batch (`parallel.shard_batch`)
-and the step keeps JAX's global-batch semantics: the loss normalisers are
-global counts, so each rank's loss is its share of the global loss; after
-backward the gradients are summed over the group (not averaged); the
-metrics are the global ones. BatchNorm statistics and the MoE routing
-span the group inside the model.
+Every train and eval step takes the `mesh` the model was built with. Each
+rank of its data group then holds a share of the global batch
+(`parallel.shard_batch`) and the step keeps JAX's global-batch semantics:
+the loss normalisers are global counts, so each rank's loss is its share
+of the global loss; after backward the gradients are summed over the
+group (not averaged); the metrics are the global ones. BatchNorm
+statistics and the MoE routing span the group inside the model. A batch
+that `shard_batch` replicated (a ragged batch axis: every rank holds all
+of it, `ShardedBatch.replicated`) runs as the one-rank step on every
+rank, inside `parallel.mesh.whole_batch()`: no group in the model or the
+loss, JAX's result for a replicated input. Each rank's gradient is then
+the whole batch's, and the step averages them over the group (on the card
+two ranks' reductions can differ in the last bits), so that every rank
+takes the same update. The route is chosen on the host from the batch's
+flag, with no sync.
 
 A step moves the host batch to the model's device itself (non-blocking
 copies) and makes no host sync: its metrics stay 0-d device tensors, and
@@ -52,10 +60,12 @@ from object_tracking_tpu_torch.config import JointConfig, LossConfig
 from object_tracking_tpu_torch.data.augment import (
     AugmentConfig, augment_sequences_batch)
 from object_tracking_tpu_torch.models.losses import (
-    binary_crossentropy, heatmap_accuracy, yolo_loss)
+    binary_crossentropy, global_mean, heatmap_accuracy, yolo_loss)
 from object_tracking_tpu_torch.ops.targets import encode_targets_batch
 from object_tracking_tpu_torch.parallel.collectives import (
-    all_reduce_sum_, sum_gradients_)
+    all_reduce_sum_, average_gradients_, sum_gradients_)
+from object_tracking_tpu_torch.parallel.mesh import (
+    is_replicated, replica_group, whole_batch)
 
 HOST_KEYS = ('aug_seeds',)      # read on the host: they seed generators
 
@@ -95,8 +105,29 @@ def _merge_time(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
-def _data_group(mesh):
-    return None if mesh is None else mesh.data_group
+def _on_mesh(mesh, step: Callable) -> Callable:
+    """`step(state, batch, group)` → `step(state, batch)` over the data
+    group of `mesh`. A batch that `shard_batch` replicated runs with no
+    group, inside `whole_batch()`, where the model's data collectives are
+    off too: the one-rank step on every rank."""
+    def run(state, batch):
+        if mesh is None:
+            return step(state, batch, None)
+        if is_replicated(batch):
+            with whole_batch(mesh.data_group):
+                return step(state, batch, None)
+        return step(state, batch, mesh.data_group)
+    return run
+
+
+def _share_metrics(metrics: Dict, keys: Sequence[str], group) -> Dict:
+    """The metrics of `keys`, each a rank's share of a global value,
+    summed over a data `group` (in place, one collective)."""
+    if group is not None:
+        shared = all_reduce_sum_(torch.stack(
+            [metrics[k].detach().float() for k in keys]), group)
+        metrics.update(zip(keys, shared))
+    return metrics
 
 
 def _yolo(netout, y_true, true_boxes, anchors, loss_cfg: LossConfig,
@@ -143,22 +174,21 @@ def _joint_loss(model, batch, anchors, loss_cfg: LossConfig,
                'detect_recall': d_aux['recall'], 'moe_aux': moe_aux}
     for comp in ('loss_xy', 'loss_wh', 'loss_conf', 'loss_class'):
         metrics[comp] = wt * t_aux[comp] + wd * d_aux[comp]
-    if group is not None:
-        shared = all_reduce_sum_(torch.stack(
-            [metrics[k].detach().float() for k in _SHARED_METRICS]), group)
-        metrics.update(zip(_SHARED_METRICS, shared))
-    return loss, metrics
+    return loss, _share_metrics(metrics, _SHARED_METRICS, group)
 
 
 def _optimize(state, loss_fn, group=None):
     """Forward (`loss_fn(model) -> (loss, metrics)`) in train() mode,
-    backward, the gradients summed over a data `group`, and one optimizer
+    backward, the gradients summed over a data `group` (or, on a
+    replicated batch, averaged over its replicas), and one optimizer
     step."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model)
     loss.backward()
-    sum_gradients_(list(state.model.parameters()), group)
+    params = list(state.model.parameters())
+    sum_gradients_(params, group)
+    average_gradients_(params, replica_group())
     state.apply_gradients()
     return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -189,14 +219,13 @@ def make_joint_train_step(anchors, loss_cfg: Optional[LossConfig] = None,
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
-    group = _data_group(mesh)
 
-    def step(state, batch):
+    def step(state, batch, group):
         device = _device(state.model)
         return _train_on(state, to_device(batch, device), anchors.on(device),
                          loss_cfg, joint_cfg, group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 def make_joint_eval_step(anchors, loss_cfg: Optional[LossConfig] = None,
@@ -209,14 +238,13 @@ def make_joint_eval_step(anchors, loss_cfg: Optional[LossConfig] = None,
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
-    group = _data_group(mesh)
 
-    def step(state, batch):
+    def step(state, batch, group):
         device = _device(state.model)
         return _eval_on(state, to_device(batch, device), anchors.on(device),
                         loss_cfg, joint_cfg, use_batch_stats, group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 def _prepare_raw_joint_batch(batch, aug_cfg, encode_fn, augment: bool):
@@ -255,18 +283,17 @@ def make_joint_train_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
     joint_cfg = joint_cfg or JointConfig()
     aug_cfg = aug_cfg or AugmentConfig()
     anchors = _Anchors(anchors)
-    group = _data_group(mesh)
     encode = _encoder(anchors, net_h, net_w, grid_h, grid_w, num_classes,
                       true_box_buffer)
 
-    def step(state, raw):
+    def step(state, raw, group):
         device = _device(state.model)
         batch = _prepare_raw_joint_batch(to_device(raw, device), aug_cfg,
                                          encode, augment)
         return _train_on(state, batch, anchors.on(device), loss_cfg,
                          joint_cfg, group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
@@ -281,46 +308,51 @@ def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
     loss_cfg = loss_cfg or LossConfig()
     joint_cfg = joint_cfg or JointConfig()
     anchors = _Anchors(anchors)
-    group = _data_group(mesh)
     encode = _encoder(anchors, net_h, net_w, grid_h, grid_w, num_classes,
                       true_box_buffer)
 
-    def step(state, raw):
+    def step(state, raw, group):
         device = _device(state.model)
         batch = _prepare_raw_joint_batch(to_device(raw, device), None,
                                          encode, augment=False)
         return _eval_on(state, batch, anchors.on(device), loss_cfg,
                         joint_cfg, use_batch_stats, group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 DETECTOR_METRICS = ('loss', 'recall', 'loss_xy', 'loss_wh', 'loss_conf',
                     'loss_class')
+# the detector metrics that are sums of the ranks' shares
+_SHARED_DETECTOR = ('loss', 'loss_xy', 'loss_wh', 'loss_conf', 'loss_class')
 
 
 def make_detector_train_step(anchors,
-                             loss_cfg: Optional[LossConfig] = None
-                             ) -> Callable:
+                             loss_cfg: Optional[LossConfig] = None,
+                             mesh=None) -> Callable:
     """Standalone detector training. Batch: images (B, H, W, 3), y_true
     (B, GH, GW, A, 5+C), true_boxes (B, 1, 1, 1, TB, 4); the model returns
-    {'netout': (B, GH, GW, A, 5+C)}. Metrics: DETECTOR_METRICS."""
+    {'netout': (B, GH, GW, A, 5+C)}; with a `mesh`, this rank's share of
+    the global batch (a model with BatchNorm built with the same mesh).
+    Metrics: DETECTOR_METRICS."""
     loss_cfg = loss_cfg or LossConfig()
     anchors = _Anchors(anchors)
 
-    def loss_fn(model, batch, step):
+    def loss_fn(model, batch, step, group):
         out = model(batch['images'], train=True)
         loss, aux = _yolo(out['netout'], batch['y_true'],
                           batch['true_boxes'],
-                          anchors.on(batch['images'].device), loss_cfg, step)
-        return loss, {k: aux[k] for k in DETECTOR_METRICS}
+                          anchors.on(batch['images'].device), loss_cfg, step,
+                          group)
+        return loss, _share_metrics({k: aux[k] for k in DETECTOR_METRICS},
+                                    _SHARED_DETECTOR, group)
 
-    def step(state, batch):
+    def step(state, batch, group):
         batch = to_device(batch, _device(state.model))
-        return _optimize(state, lambda model: loss_fn(model, batch,
-                                                      state.step))
+        return _optimize(state, lambda model: loss_fn(
+            model, batch, state.step, group), group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 def head_anchor_cells(head_specs: Sequence[Tuple], net_size
@@ -334,10 +366,12 @@ def head_anchor_cells(head_specs: Sequence[Tuple], net_size
 
 def make_multihead_detector_train_step(head_specs, net_size,
                                        loss_cfg: Optional[LossConfig]
-                                       = None) -> Callable:
+                                       = None, mesh=None) -> Callable:
     """Standalone training of multi-head ([yolo], v3-family) cfg nets: one
     YOLOv2 loss per head at its own grid, with its pixel anchors converted
     to that grid's cells, summed; the recall is the mean of the heads'.
+    With a `mesh`, each rank holds its share of the global batch, as in
+    `make_detector_train_step`.
 
     Args:
       head_specs: per head (anchors_px flat tuple, grid_h, grid_w,
@@ -350,35 +384,40 @@ def make_multihead_detector_train_step(head_specs, net_size,
     loss_cfg = loss_cfg or LossConfig()
     cells = [_Anchors(a) for a in head_anchor_cells(head_specs, net_size)]
 
-    def loss_fn(model, batch, step):
+    def loss_fn(model, batch, step, group):
         out = model(batch['images'], train=True)
         device = batch['images'].device
         total, metrics, recalls = 0.0, {}, []
         for i, anchors in enumerate(cells):
             loss, aux = _yolo(out['heads'][i], batch['y_true'][i],
                               batch['true_boxes'][i], anchors.on(device),
-                              loss_cfg, step)
+                              loss_cfg, step, group)
             total = total + loss
             for k in ('loss', 'loss_xy', 'loss_wh', 'loss_conf',
                       'loss_class'):
                 metrics[k] = metrics[k] + aux[k] if k in metrics else aux[k]
             recalls.append(aux['recall'])
         metrics['recall'] = sum(recalls) / len(recalls)
-        return total, {k: metrics[k] for k in DETECTOR_METRICS}
+        return total, _share_metrics({k: metrics[k]
+                                      for k in DETECTOR_METRICS},
+                                     _SHARED_DETECTOR, group)
 
-    def step(state, batch):
+    def step(state, batch, group):
         batch = to_device(batch, _device(state.model))
-        return _optimize(state, lambda model: loss_fn(model, batch,
-                                                      state.step))
+        return _optimize(state, lambda model: loss_fn(
+            model, batch, state.step, group), group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
-def _huber(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean Huber loss with delta 1 (smooth L1)."""
+def _huber(pred: torch.Tensor, target: torch.Tensor,
+           group=None) -> torch.Tensor:
+    """Mean Huber loss with delta 1 (smooth L1); with a data `group`, this
+    rank's share of the global mean."""
     diff = pred.float() - target
     a = diff.abs()
-    return torch.mean(torch.where(a < 1.0, 0.5 * diff * diff, a - 0.5))
+    return global_mean(torch.where(a < 1.0, 0.5 * diff * diff, a - 0.5),
+                        group)
 
 
 # bce: the reference's loss on the sigmoid outputs, even for continuous box
@@ -393,41 +432,42 @@ def _tiny_loss_fn(loss_name: str) -> Callable:
     return TINY_LOSSES[loss_name]
 
 
-def _tiny_loss(model, batch, heatmap: bool, loss_fn: Callable):
+def _tiny_loss(model, batch, heatmap: bool, loss_fn: Callable, group=None):
     """(loss, metrics) of the single-object tracker on a device batch,
-    with the heatmap accuracy for the heatmap head."""
+    with the heatmap accuracy for the heatmap head; with a data `group`,
+    the loss is this rank's share and the metrics are global."""
     pred = model(batch['feats'], batch['det'])
     target = batch['target'].float()
-    loss = loss_fn(pred, target)
-    metrics = {'loss': loss}
+    loss = loss_fn(pred, target, group=group)
+    metrics = _share_metrics({'loss': loss}, ('loss',), group)
     if heatmap:
-        metrics['heatmap_acc'] = heatmap_accuracy(pred, target)
+        metrics['heatmap_acc'] = heatmap_accuracy(pred, target, group=group)
     return loss, metrics
 
 
 def make_tiny_train_step(heatmap: bool = False,
-                         loss_name: str = 'bce') -> Callable:
+                         loss_name: str = 'bce', mesh=None) -> Callable:
     """TinyTracker / TinyHeatmapTracker step. Batch: feats (B, T, h, w, c),
-    det (B, T, D), target (B, T, out_dim); `loss_name` a key of
-    TINY_LOSSES."""
+    det (B, T, D), target (B, T, out_dim), with a `mesh` this rank's share
+    of the global batch; `loss_name` a key of TINY_LOSSES."""
     loss_fn = _tiny_loss_fn(loss_name)
 
-    def step(state, batch):
+    def step(state, batch, group):
         batch = to_device(batch, _device(state.model))
         return _optimize(state, lambda model: _tiny_loss(
-            model, batch, heatmap, loss_fn))
+            model, batch, heatmap, loss_fn, group), group)
 
-    return step
+    return _on_mesh(mesh, step)
 
 
 def make_tiny_eval_step(heatmap: bool = False,
-                        loss_name: str = 'bce') -> Callable:
+                        loss_name: str = 'bce', mesh=None) -> Callable:
     loss_fn = _tiny_loss_fn(loss_name)
 
     @torch.no_grad()
-    def step(state, batch):
+    def step(state, batch, group):
         state.model.eval()
         return _tiny_loss(state.model, to_device(batch, _device(state.model)),
-                          heatmap, loss_fn)[1]
+                          heatmap, loss_fn, group)[1]
 
-    return step
+    return _on_mesh(mesh, step)

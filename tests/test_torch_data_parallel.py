@@ -5,9 +5,10 @@ Small size (width_div=8, 64x64 frames, 2 classes, 2 anchors, ConvLSTM-8),
 JAX's initial weights carried by `convert.from_flax`, the fused step
 without augmentation. One spawned world of 2 ranks
 (`torch_ranks.train_world`) runs every layout: data parallel with the
-dense and the MoE head, sequence parallel (time_shards=2, dense and MoE),
-the pipelined 2-layer stack (with a checkpoint), and two naive per-rank
-semantics.
+dense and the MoE head, the MoE head on a ragged batch (B=3, which
+`shard_batch` replicates), sequence parallel (time_shards=2, dense and
+MoE), the pipelined 2-layer stack (with a checkpoint), and two naive
+per-rank semantics.
 
 Tolerances, as JAX's dry run holds its layouts
 (`__graft_entry__.py:122-131`) and test_torch_steps.py the dense steps:
@@ -16,7 +17,10 @@ Tolerances, as JAX's dry run holds its layouts
 - the two-step parameter update against the single-rank port's: cosine
   > 0.999 and norm ratio within 5 %;
 - against JAX's step on a 2-device mesh: gradients per-leaf relative L2
-  <= 1e-3, metrics rtol 1e-4 (test_torch_steps.py's bars).
+  <= 1e-3, metrics rtol 1e-4 (test_torch_steps.py's bars);
+- the MoE routing of the replicated batch against JAX's: the same kept
+  slots, the head's output and auxiliary loss 1e-5 (test_torch_expert.py's
+  bars).
 """
 
 import jax
@@ -30,6 +34,9 @@ from object_tracking_tpu.config import MeshConfig as JMeshConfig
 from object_tracking_tpu.models import MultiObjDetTracker as JTracker
 from object_tracking_tpu.ops.targets import encode_targets as jencode
 from object_tracking_tpu.parallel import make_mesh as jmake_mesh
+from object_tracking_tpu.parallel import moe_apply as jmoe
+from object_tracking_tpu.parallel import moe_capacity as jmoe_capacity
+from object_tracking_tpu.parallel.expert import _route as jroute
 from object_tracking_tpu.parallel import shard_batch as jshard
 from object_tracking_tpu.training import TrainState as JState
 from object_tracking_tpu.training import make_joint_train_step_fused as jtrainf
@@ -84,6 +91,7 @@ def run(tmp_path_factory):
     moe = _jax_init(1, 2, moe_experts=2, moe_hidden=8)
     deep = _jax_init(2, 2, convlstm_layers=N + 1)
     inputs = {'raw': raw_batch(N, 2, 0), 'raw_t': raw_batch(2, 2 * N, 1),
+              'raw_ragged': raw_batch(N + 1, 2, 2),
               'dense': _weights(dense[1]), 'moe': _weights(moe[1]),
               'deep': _weights(deep[1])}
     ckpt = str(tmp_path_factory.mktemp('pp_ckpt'))
@@ -96,6 +104,8 @@ def run(tmp_path_factory):
 # layout → (weights, raw batch, single-rank model options)
 LAYOUTS = {'dp': ('dense', 'raw', {}),
            'moe': ('moe', 'raw', dict(moe_experts=2, moe_hidden=8)),
+           'moe_ragged': ('moe', 'raw_ragged',
+                          dict(moe_experts=2, moe_hidden=8)),
            'sp': ('dense', 'raw_t', {}),
            'sp_moe': ('moe', 'raw_t', dict(moe_experts=2, moe_hidden=8)),
            'pp': ('deep', 'raw', dict(convlstm_layers=N + 1))}
@@ -181,6 +191,49 @@ def test_moe_dp_step_matches_jax_on_a_two_device_mesh(run):
     for out in run['ranks']:
         for k, v in metrics.items():
             np.testing.assert_allclose(out['moe']['metrics'][0][k],
+                                       float(v), err_msg=k, **METRIC_TOL)
+
+
+def test_moe_replicated_batch_routes_as_jax(run):
+    """A batch that the data axis does not divide (B=3 on 2 ranks) is
+    replicated, as JAX's shard_batch replicates it, and each rank routes
+    its tokens as JAX routes the replicated input: one group of all of
+    them, capacity moe_capacity(n), in their own order. The same kept
+    slots as JAX's `_route`, the head's output and auxiliary loss as
+    JAX's `moe_apply` (1e-5), and the step's metrics, moe_aux included,
+    as JAX's fused step on a 2-device mesh (rtol 1e-4)."""
+    model, variables = run['jax']['moe']
+    w = run['inputs']['moe']
+    params = {k: w[f'tconv_moe.{k}'] for k in ('gate', 'w1', 'b1', 'w2',
+                                               'b2')}
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for out in run['ranks']:
+        route = out['moe_ragged']['route']
+        assert not route['group']
+        tokens = route['tokens']
+        n = tokens.shape[0] * tokens.shape[1]
+        cap = jmoe_capacity(n, 2, 1.25)
+        assert route['capacity'] == cap
+        dispatch, _, _ = jroute(jnp.asarray(tokens, jnp.float32),
+                                jnp.asarray(route['gate'], jnp.float32), 2,
+                                cap)
+        np.testing.assert_array_equal(route['dispatch'],
+                                      np.asarray(dispatch))
+        y, aux = jmoe(params, jnp.asarray(tokens.reshape(n, -1),
+                                          jnp.float32),
+                      capacity_factor=1.25, return_aux=True)
+        head, head_aux = out['moe_ragged']['head']
+        np.testing.assert_allclose(head.reshape(n, -1), np.asarray(y), **tol)
+        np.testing.assert_allclose(head_aux, float(aux), **tol)
+    mesh = jmake_mesh(JMeshConfig(data_parallel=N), jax.devices()[:N])
+    state = JState.create(model.apply, jax.tree_util.tree_map(
+        jnp.asarray, variables), jopt(1e-3))
+    _, metrics = jtrainf(ANCHORS, augment=False, **ENC)(
+        state, jshard(mesh, run['inputs']['raw_ragged']))
+    assert float(metrics['moe_aux']) > 0
+    for out in run['ranks']:
+        for k, v in metrics.items():
+            np.testing.assert_allclose(out['moe_ragged']['metrics'][0][k],
                                        float(v), err_msg=k, **METRIC_TOL)
 
 

@@ -25,11 +25,13 @@ from object_tracking_tpu.parallel import gpipe as jgpipe
 from object_tracking_tpu.parallel import make_mesh as jmake_mesh
 from object_tracking_tpu.parallel import pipeline_scan as jpipeline
 from object_tracking_tpu_torch.config import MeshConfig
-from object_tracking_tpu_torch.parallel import (Mesh, data_sharding,
+from object_tracking_tpu_torch.parallel import (Mesh, ShardedBatch,
+                                                data_sharding,
                                                 distributed_init,
+                                                is_replicated,
                                                 local_batch_size, make_mesh,
                                                 replicated_sharding,
-                                                shard_batch)
+                                                shard_batch, whole_batch)
 from object_tracking_tpu_torch.parallel import mesh as mesh_mod
 from torch_ranks import scan_world, run_world
 
@@ -75,6 +77,30 @@ def test_shard_batch_layout(caplog):
     assert [type(p).__name__ for p in data_sharding(mesh)] == [
         'Shard', 'Replicate']
     assert len(replicated_sharding(mesh)) == 2
+
+
+def test_shard_batch_reports_replication():
+    """A dict comes back as a ShardedBatch that says whether it was
+    sliced or replicated; one ragged leaf replicates every leaf (the step
+    then runs on the whole batch). Inside whole_batch(replicas), and only
+    there, the replicas' group is at hand for the gradients' mean."""
+    mesh = Mesh({'data': 2, 'model': 1})
+    sliced = shard_batch(mesh, {'x': np.zeros((4, 3)), 'n': np.int32(5)})
+    assert isinstance(sliced, ShardedBatch) and not sliced.replicated
+    assert sliced['x'].shape == (2, 3) and sliced['n'] == 5
+    ragged = shard_batch(mesh, {'x': np.zeros((4, 3)),
+                                'y': (np.zeros((3, 2)),)})
+    assert ragged.replicated and is_replicated(ragged)
+    assert ragged['x'].shape == (4, 3) and ragged['y'][0].shape == (3, 2)
+    assert not is_replicated({'x': np.zeros(3)})
+    replicas = object()
+    assert not mesh_mod.in_whole_batch()
+    assert mesh_mod.replica_group() is None
+    with whole_batch(replicas):
+        assert mesh_mod.in_whole_batch()
+        assert mesh_mod.replica_group() is replicas
+    assert not mesh_mod.in_whole_batch()
+    assert mesh_mod.replica_group() is None
 
 
 def test_distributed_init_flag_plumbing(monkeypatch):
@@ -289,7 +315,8 @@ def test_mesh_layout_and_shard_batch_in_a_world(world):
     """make_mesh over the world: data = all ranks, or (n/2, 2) row-major
     (rank = data index · 2 + model index, JAX's reshape(dp, mp)); each
     rank keeps its block of the global batch along B or T; ragged leaves
-    replicate; a mesh larger than the world raises."""
+    replicate; a mesh larger than the world raises; whole_batch() drops
+    the data axis's group and average_gradients_ takes the ranks' mean."""
     n, _, results = world
     for rank, out in enumerate(results):
         shape, d, m = out['layout']
@@ -303,3 +330,7 @@ def test_mesh_layout_and_shard_batch_in_a_world(world):
         assert out['shard_t'] == (2, 2, 5)
         assert out['ragged'] == (n + 1, 3)
         assert f'needs {2 * n} devices, have {n}' in out['err_mesh']
+        # whole_batch() drops the data axis's group, not the model axis's
+        assert out['groups'] == out['whole_groups'] == (True, True)
+        # the replicas' gradients averaged: rank r held r everywhere
+        np.testing.assert_array_equal(out['average'], [(n - 1) / 2] * 2)

@@ -10,10 +10,17 @@ mirroring tests/test_trainer_e2e.py (a slow-tier JAX test) on the port:
   `torch_ranks.flow_world`): trained with `pp_layers` and
   `time_shards=2`, its checkpoint restores into the dense eval model;
 - plain data parallelism over 2 ranks: every rank ends on the same
-  weights, and only rank 0 writes the logs and the checkpoint.
+  weights, and only rank 0 writes the logs and the checkpoint;
+- the single-object and detector training flows over the same 2 ranks
+  (`torch_ranks.spied_flow`): each rank's step sees half of each global
+  batch (the detector's ragged last batch of 3 whole, replicated), every
+  rank ends on the same weights, within the two-step bars of
+  tests/test_torch_data_parallel.py (cosine > 0.999, norm ratio within
+  5 %) of the one-rank flow's update, and only rank 0 writes.
 
-Small: 64x64 synthetic frames, width_div=8, ConvLSTM-8, batch 2, one
-epoch, one intra-op thread.
+One spawned world runs every 2-rank flow in turn. Small: 64x64 synthetic
+frames, width_div=8, ConvLSTM-8 and batch 2 (joint), LSTM-16, T=3 and
+batch 4 (single-object, detector), one epoch, one intra-op thread.
 """
 
 import glob
@@ -25,7 +32,8 @@ import pytest
 import torch
 
 from object_tracking_tpu_torch import trainer
-from torch_ranks import flow_world, run_world, tiny_joint_config
+from torch_ranks import (flow_world, run_world, spied_flow,
+                         tiny_flow_config, tiny_joint_config)
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -117,34 +125,90 @@ def test_moe_export_serving_matches_joint_predictor(moe_run, tmp_path):
             np.testing.assert_allclose(a['score'], b['score'], atol=1e-5)
 
 
-def test_joint_pp_sp_train_then_dense_eval_restore(tmp_path):
+FLOWS = {'pp_sp': ('joint', dict(convlstm_layers=2, pp_layers=True,
+                                  time_shards=2, sequence_length=4)),
+         'dp': ('joint', {}), 'single': ('single', {}),
+         'detect': ('detect', {})}
+
+
+@pytest.fixture(scope='module')
+def world(tmp_path_factory):
+    """Every flow of FLOWS in one world of 2 ranks, each in its own
+    workdir: {name: (workdir, [result per rank])}."""
+    root = tmp_path_factory.mktemp('flows')
+    flows = {}
+    for name, (kind, options) in FLOWS.items():
+        os.makedirs(root / name)
+        flows[name] = (kind, str(root / name), options)
+    ranks = run_world(flow_world, 2, root, flows, init=False, timeout=400)
+    return {name: (flows[name][1], [r[name] for r in ranks])
+            for name in flows}
+
+
+def _same_weights(ranks):
+    for k, v in ranks[0]['params'].items():
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r['params'][k], v, err_msg=k)
+
+
+def test_joint_pp_sp_train_then_dense_eval_restore(world):
     """2 ranks: the first ConvLSTM layer's recurrence time-sharded over
     the data axis (T=4, two frames a rank) and a 1-layer stack pipelined
     over the model axis (one stage); then the dense eval rebuild (no
     pp_layers, no time_shards) restores the checkpoint rank 0 wrote."""
-    wd = str(tmp_path / 'ppsp')
-    os.makedirs(wd)
-    joint = dict(convlstm_layers=2, pp_layers=True, time_shards=2,
-                 sequence_length=4)
-    ranks = run_world(flow_world, 2, tmp_path, wd, joint, init=False,
-                      timeout=240)
+    wd, ranks = world['pp_sp']
     assert [r['world'] for r in ranks] == [2, 2]
     assert ranks[0]['step'] == ranks[1]['step'] > 0
-    for k, v in ranks[0]['params'].items():
-        np.testing.assert_array_equal(ranks[1]['params'][k], v, err_msg=k)
+    _same_weights(ranks)
     dense = tiny_joint_config()
     dense.joint.convlstm_layers = 2
     _eval(dense, wd)
 
 
-def test_joint_data_parallel_flow_writes_once(tmp_path):
-    wd = str(tmp_path / 'dp')
-    os.makedirs(wd)
-    ranks = run_world(flow_world, 2, tmp_path, wd, {}, init=False,
-                      timeout=240)
-    for k, v in ranks[0]['params'].items():
-        np.testing.assert_array_equal(ranks[1]['params'][k], v, err_msg=k)
+def test_joint_data_parallel_flow_writes_once(world):
+    wd, ranks = world['dp']
+    _same_weights(ranks)
     assert os.listdir(os.path.join(wd, 'logs')) == ['run_1']
     assert sorted(os.listdir(os.path.join(wd, 'models', 'multi_obj'))) == [
         'ckpt_1.json', 'ckpt_1.pt']
     assert any('train/loss' in r for r in _logged(wd))
+
+
+def _update(seen):
+    return np.concatenate([(seen['params'][k] - seen['initial'][k]).ravel()
+                           for k in sorted(seen['params'])])
+
+
+# each step's global batch, its share on a rank, and whether shard_batch
+# replicated it
+SLICES = {'single': ([4, 4], [2, 2], [False, False]),
+          'detect': ([4, 3], [2, 3], [False, True])}
+CHECKPOINTS = {'single': 'tiny_tracker', 'detect': 'yolov2'}
+
+
+@pytest.mark.parametrize('flow', ['single', 'detect'])
+def test_flow_trains_data_parallel(world, tmp_path, flow):
+    """The single-object or detector flow over 2 ranks: each rank's step
+    sees half of each global batch of 4 (the detector's ragged last batch
+    of 3 replicated whole), every rank ends on the same weights, the
+    update lies within cosine > 0.999 and norm ratio 1 ± 5 % of the
+    one-rank flow's, and only rank 0 writes the logs and the
+    checkpoint."""
+    wd, ranks = world[flow]
+    ref = spied_flow(flow, tiny_flow_config(), str(tmp_path))
+    whole, local, replicated = SLICES[flow]
+    assert ref['local_batch'] == whole
+    for r in ranks:
+        assert r['local_batch'] == local and r['replicated'] == replicated
+        assert r['step'] == ref['step'] == 2
+        for k, v in ref['initial'].items():
+            np.testing.assert_array_equal(r['initial'][k], v, err_msg=k)
+    _same_weights(ranks)
+    d, d_ref = _update(ranks[0]), _update(ref)
+    cos = d @ d_ref / (np.linalg.norm(d) * np.linalg.norm(d_ref))
+    ratio = np.linalg.norm(d) / np.linalg.norm(d_ref)
+    assert cos > 0.999 and abs(ratio - 1.0) < 0.05, (flow, cos, ratio)
+    assert os.listdir(os.path.join(wd, 'logs')) == ['run_1']
+    assert sorted(os.listdir(os.path.join(wd, 'models',
+                                          CHECKPOINTS[flow]))) == [
+        'ckpt_1.json', 'ckpt_1.pt']

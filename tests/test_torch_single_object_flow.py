@@ -6,7 +6,8 @@ Small size, as tests/test_trainer.py: 64² frames (one synthetic video of 5
 frames), width_div=8, LSTM-16, 8² heatmaps, T=3, B=2, one epoch, then a
 resume from the checkpoint it wrote. Also: the prior-source dispatch and
 its feature-layer fallbacks, the residual+bce refusal, a multi-process
-config (a world of one rank), and the default device.
+config (a world of one rank, each step on its slice of the batch), and
+the default device.
 """
 
 import json
@@ -197,18 +198,39 @@ def test_default_device_is_the_card(tmp_path, monkeypatch, flow):
 
 
 @pytest.mark.parametrize('flow', ['single', 'detect'])
-def test_multi_host_waits(tmp_path, flow):
+def test_multi_host_waits(tmp_path, flow, monkeypatch):
     """`mesh.distributed` no longer waits: the flow joins the configured
-    world (one gloo rank here), runs the whole batch on every rank, and
-    rank 0 writes the checkpoint."""
+    world (one gloo rank here), each train step takes this rank's slice
+    of the global batch from `shard_batch` (over a data axis of 1, all of
+    it, sliced and not replicated), and rank 0 writes the checkpoint."""
     import torch.distributed as dist
+    from object_tracking_tpu_torch import training
+    from object_tracking_tpu_torch.parallel import ShardedBatch
     from torch_ranks import one_rank_world
+    name = ('make_tiny_train_step' if flow == 'single'
+            else 'make_detector_train_step')
+    factory, seen = getattr(training, name), []
+
+    def spy(*args, **kw):
+        step = factory(*args, **kw)
+
+        def run(state, batch):
+            seen.append(batch)
+            return step(state, batch)
+        return run
+
+    monkeypatch.setattr(training, name, spy)
     cfg = tiny_cfg()
     with one_rank_world(cfg, tmp_path):
         state = single(cfg, tmp_path) if flow == 'single' else \
             detect(cfg, tmp_path)
         assert dist.is_initialized() and dist.get_world_size() == 1
     assert state.step > 0
+    assert all(isinstance(b, ShardedBatch) and not b.replicated
+               for b in seen)
+    key = 'feats' if flow == 'single' else 'images'
+    assert [len(b[key]) for b in seen] == ([2] if flow == 'single'
+                                           else [4, 1])
     name = 'tiny_tracker' if flow == 'single' else 'yolov2'
     assert saved(tmp_path, name) == ['ckpt_1.json', 'ckpt_1.pt']
 

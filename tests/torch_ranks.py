@@ -300,6 +300,18 @@ def scan_world(rank, n, inputs):
     out['shard_t'] = shard_batch(data, {'x': np.zeros((2, 2 * n, 5))},
                                  axis=1)['x'].shape
     out['ragged'] = shard_batch(data, {'x': np.zeros((n + 1, 3))})['x'].shape
+    from object_tracking_tpu_torch.parallel import whole_batch
+    from object_tracking_tpu_torch.parallel.collectives import (
+        average_gradients_)
+    p = torch.nn.Parameter(torch.zeros(2))
+    p.grad = torch.full((2,), float(rank))
+    average_gradients_([p], data.data_group)
+    out['average'] = _np(p.grad)
+    with whole_batch():
+        out['whole_groups'] = (grid.group('data') is None,
+                               grid.group('model') is not None)
+    out['groups'] = (grid.group('data') is not None,
+                     grid.group('model') is not None)
     out['err_mesh'] = _error(lambda: make_mesh(
         MeshConfig(data_parallel=n, model_parallel=2)))
     return out
@@ -357,10 +369,35 @@ def two_steps(state, raw, mesh=None, axis=0, ckpt=None):
     return out
 
 
+@contextlib.contextmanager
+def recorded_routes(log: list):
+    """Within the block, every MoE routing (`parallel.expert._route`)
+    appends its tokens, gate, capacity, dispatch and whether it ran over a
+    group to `log`."""
+    from object_tracking_tpu_torch.parallel import expert
+    route = expert._route
+
+    def spy(tokens, gate_w, num_experts, capacity, group=None, segments=1):
+        dispatch, combine, aux = route(tokens, gate_w, num_experts,
+                                       capacity, group, segments)
+        log.append({'tokens': _np(tokens), 'gate': _np(gate_w),
+                    'capacity': capacity, 'dispatch': _np(dispatch),
+                    'group': group is not None})
+        return dispatch, combine, aux
+
+    expert._route = spy
+    try:
+        yield
+    finally:
+        expert._route = route
+
+
 def train_world(rank, n, inputs, ckpt):
     """The joint train step over 2 ranks: data parallel (dense and MoE
-    heads), the two naive per-rank semantics, sequence parallel (dense
-    and MoE), and the pipelined stack (with a checkpoint)."""
+    heads, and the MoE head on a ragged batch, which shard_batch
+    replicates, with its first routing and head output recorded), the two
+    naive per-rank semantics, sequence parallel (dense and MoE), and the
+    pipelined stack (with a checkpoint)."""
     from object_tracking_tpu_torch.config import JointConfig, LossConfig
     from object_tracking_tpu_torch.parallel import shard_batch
     from object_tracking_tpu_torch.training.steps import (
@@ -372,6 +409,16 @@ def train_world(rank, n, inputs, ckpt):
     out['dp'] = two_steps(joint_state(inputs['dense'], dp), raw, dp)
     out['moe'] = two_steps(joint_state(inputs['moe'], dp, moe_experts=2,
                                        moe_hidden=8), raw, dp)
+    state = joint_state(inputs['moe'], dp, moe_experts=2, moe_hidden=8)
+    routes, heads = [], []
+    hook = state.model.tconv_moe.register_forward_hook(
+        lambda module, args, result: heads.append(
+            (_np(result[0]), float(result[1].detach()))))
+    with recorded_routes(routes):
+        out['moe_ragged'] = two_steps(state, inputs['raw_ragged'], dp)
+    hook.remove()
+    out['moe_ragged']['route'] = routes[0]
+    out['moe_ragged']['head'] = heads[0]
     out['sp'] = two_steps(joint_state(inputs['dense'], dp, time_shards=n),
                           raw_t, dp, axis=1)
     out['sp_moe'] = two_steps(joint_state(inputs['moe'], dp, time_shards=n,
@@ -414,27 +461,116 @@ def tiny_joint_config(size: int = 64):
     return cfg
 
 
-def flow_world(rank, n, store, workdir, joint):
-    """The joint flow on every rank of an n-rank world that the flow joins
-    itself (`mesh.distributed`, a file:// rendezvous): `joint` sets the
-    JointConfig fields and the data axis takes every rank."""
+def tiny_flow_config():
+    """The single-object and detector flows' small config
+    (tests/test_torch_single_object_flow.py's, at B=4 for both)."""
+    from object_tracking_tpu_torch.config import Config
+    cfg = Config()
+    cfg.detector.image_h = cfg.detector.image_w = 64
+    cfg.detector.grid_h = cfg.detector.grid_w = 2
+    cfg.detector.batch_size = 4
+    cfg.detector.width_div = 8
+    cfg.tracker.sequence_length = 3
+    cfg.tracker.lstm_units = 16
+    cfg.tracker.heatmap_size = 8
+    cfg.train.batch_size = 4
+    cfg.train.max_epochs = 1
+    cfg.train.augment = False
+    return cfg
+
+
+# frames of the one synthetic video of each flow: 8 windows of 3 (two
+# batches of 4) for the single-object flow; a batch of 4 and a ragged
+# one of 3 for the detector flow (a last batch of one 64² image leaves
+# BatchNorm 4 values a channel at the 2x2 grid, which turns the float32
+# rounding of the first step's sums into a 0.14 % turn of the update)
+FLOW_FRAMES = {'single': 10, 'detect': 7}
+_STEP_FACTORIES = {'single': ('make_tiny_train_step',),
+                   'detect': ('make_detector_train_step',
+                              'make_multihead_detector_train_step')}
+
+
+def spied_flow(flow: str, cfg, workdir: str) -> dict:
+    """The single-object ('single') or detector ('detect') training flow,
+    one epoch over one synthetic video of FLOW_FRAMES[flow] frames, with a
+    spy on its train step. Returns what the spy saw (the parameters before
+    the first step, each step's batch size and whether its batch was
+    replicated), the final step and parameters."""
+    from object_tracking_tpu_torch import trainer, training
+    from object_tracking_tpu_torch.parallel import is_replicated
+    seen = {'local_batch': [], 'replicated': []}
+
+    def spy(factory):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+
+            def run(state, batch):
+                seen.setdefault('initial', {
+                    k: _np(p) for k, p in state.model.named_parameters()})
+                lead = batch['images'] if 'images' in batch else \
+                    batch['feats']
+                seen['local_batch'].append(int(lead.shape[0]))
+                seen['replicated'].append(is_replicated(batch))
+                return step(state, batch)
+            return run
+        return make
+
+    saved = {name: getattr(training, name) for name in _STEP_FACTORIES[flow]}
+    synthetic_dirs = trainer._synthetic_dirs
+    trainer._synthetic_dirs = lambda cfg, size, labels, **kw: \
+        synthetic_dirs(cfg, size, labels, frames=FLOW_FRAMES[flow],
+                       videos=1, workdir=kw.get('workdir'))
+    for name, factory in saved.items():
+        setattr(training, name, spy(factory))
+    try:
+        if flow == 'single':
+            state = trainer.single_object_tracking(
+                cfg, synthetic=True, epochs=1, workdir=workdir,
+                device='cpu')
+        else:
+            state = trainer.keras_yolo_obj_detection(
+                cfg, synthetic=True, epochs=1, workdir=workdir, train=True,
+                device='cpu')
+    finally:
+        trainer._synthetic_dirs = synthetic_dirs
+        for name, factory in saved.items():
+            setattr(training, name, factory)
+    seen['step'] = state.step
+    seen['params'] = {k: _np(p) for k, p in state.model.named_parameters()}
+    return seen
+
+
+def flow_world(rank, n, store, flows):
+    """Each flow of `flows` ({name: (kind, workdir, options)}) in turn on
+    every rank of an n-rank world that the flows join themselves
+    (`mesh.distributed`, a file:// rendezvous; the first joins, the later
+    ones find the process group up), the data axis taking every rank:
+    kind 'joint' is the joint flow with `options` set on its JointConfig,
+    'single' and 'detect' the single-object and detector training flows
+    (`spied_flow`)."""
     import torch.distributed as dist
     from object_tracking_tpu_torch import trainer
-    cfg = tiny_joint_config()
-    for k, v in joint.items():
-        setattr(cfg.joint, k, v)
-    cfg.mesh.distributed = True
-    cfg.mesh.coordinator_address = f'file://{store}'
-    cfg.mesh.num_processes = n
-    cfg.mesh.process_id = rank
-    cfg.mesh.data_parallel = n
-    state = trainer.simult_multi_obj_detection_tracking(
-        cfg, synthetic=True, workdir=workdir, device='cpu')
-    return {'world': dist.get_world_size(), 'step': state.step,
-            'held': {k: tuple(p.shape)
-                     for k, p in state.model.named_parameters()},
-            'params': {k: _np(p) for k, p in
-                       state.model.named_parameters()}}
+    out = {}
+    for name, (kind, workdir, options) in flows.items():
+        cfg = tiny_joint_config() if kind == 'joint' else tiny_flow_config()
+        for k, v in options.items():
+            setattr(cfg.joint, k, v)
+        cfg.mesh.distributed = True
+        cfg.mesh.coordinator_address = f'file://{store}'
+        cfg.mesh.num_processes = n
+        cfg.mesh.process_id = rank
+        cfg.mesh.data_parallel = n
+        if kind != 'joint':
+            out[name] = spied_flow(kind, cfg, workdir)
+            continue
+        state = trainer.simult_multi_obj_detection_tracking(
+            cfg, synthetic=True, workdir=workdir, device='cpu')
+        out[name] = {'world': dist.get_world_size(), 'step': state.step,
+                     'held': {k: tuple(p.shape)
+                              for k, p in state.model.named_parameters()},
+                     'params': {k: _np(p) for k, p in
+                                state.model.named_parameters()}}
+    return out
 
 
 # ------------------------------------------------------ tensor parallelism
@@ -595,3 +731,72 @@ def tp_world(rank, n, inputs, layouts):
                 res['run64'] = {k: got64[k] for k in ('metrics', 'grads')}
             out[f'{dp}x{tp}_{head}'] = res
     return out
+
+
+# ----------------------------------- data-parallel detector and tiny steps
+
+def _dp_model(case, mesh):
+    from object_tracking_tpu_torch.models import Darknet19, TinyTracker
+    from object_tracking_tpu_torch.models.darknet_cfg import build_from_cfg
+    if case['kind'] == 'detector':
+        model = Darknet19(num_classes=2, num_anchors=2, width_div=8,
+                          mesh=mesh)
+    elif case['kind'] == 'multihead':
+        model = build_from_cfg(case['cfg'], mesh=mesh)[0]
+    else:
+        model = TinyTracker(case['feat'], lstm_units=16, out_dim=case['out'])
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case['weights'].items()})
+    return model
+
+
+def _dp_step_fns(case, mesh):
+    """(train step, eval step or None) of `case` over `mesh`."""
+    from object_tracking_tpu_torch.training import (
+        make_detector_train_step, make_multihead_detector_train_step,
+        make_tiny_eval_step, make_tiny_train_step)
+    if case['kind'] == 'detector':
+        return make_detector_train_step(case['anchors'], mesh=mesh), None
+    if case['kind'] == 'multihead':
+        return make_multihead_detector_train_step(
+            case['heads'], case['net'], mesh=mesh), None
+    return (make_tiny_train_step(case['heatmap'], case['loss'], mesh=mesh),
+            make_tiny_eval_step(case['heatmap'], case['loss'], mesh=mesh))
+
+
+def dp_two_steps(case, mesh=None):
+    """Two train steps of `case` (a model kind, its numpy weights, two
+    global batches, the step's options) on this rank's slice of each
+    batch: each step's metrics, the batch size it saw and whether the
+    batch was replicated, the eval step's metrics before training (tiny
+    steps), the first step's gradients and running statistics, and the
+    parameters after both."""
+    from object_tracking_tpu_torch.parallel import is_replicated, shard_batch
+    from object_tracking_tpu_torch.training import TrainState, make_optimizer
+    model = _dp_model(case, mesh)
+    state = TrainState.create(model, make_optimizer(case['lr']))
+    train, evaluate = _dp_step_fns(case, mesh)
+    out = {'metrics': [], 'local_batch': [], 'replicated': []}
+    for i, batch in enumerate(case['batches']):
+        mine = batch if mesh is None else shard_batch(mesh, batch)
+        lead = mine['images'] if 'images' in mine else mine['feats']
+        out['local_batch'].append(int(lead.shape[0]))
+        out['replicated'].append(is_replicated(mine))
+        if evaluate is not None and i == 0:
+            out['eval'] = {k: float(v) for k, v in
+                           evaluate(state, mine).items()}
+        state, metrics = train(state, mine)
+        out['metrics'].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out['grads'] = {k: _np(p.grad)
+                            for k, p in model.named_parameters()
+                            if p.grad is not None}
+            out['stats'] = {k: _np(b) for k, b in model.named_buffers()}
+    out['params'] = {k: _np(p) for k, p in model.named_parameters()}
+    return out
+
+
+def dp_world(rank, n, cases):
+    """Every case of `cases` over a data axis of n ranks (dp_two_steps)."""
+    mesh = _mesh(n, 1)
+    return {name: dp_two_steps(case, mesh) for name, case in cases.items()}
