@@ -1,0 +1,7 @@
+"""Host ms per batched call inside assign_tracks spans (ops/matching.py), timed without the profiler."""
+
+from portbench import readers
+
+
+def read(reading):
+    return readers.span_host_ms(reading, 'assign_tracks')
