@@ -126,7 +126,7 @@ JSON line:
    localhost): the data-parallel step against the plain step,
    expert_parallel_moe with one expert and a one-stage pipeline against
    the dense forms; and a profile_trace of two reduced-cut steps holding
-   CUDA kernel events and both annotated ranges;
+   CUDA kernel events and the spans' ranges;
 14. native_data: the native data runtime's binding (data/native_loader.py)
    builds its library from native/ott_dataio.cpp with g++ into
    build/native/ (build seconds), or the phase reports the compiler's
@@ -2203,12 +2203,14 @@ def nccl_world_of_one(device) -> dict:
 
 
 def profiling_check(device) -> dict:
-    """profile_trace around two fused steps (reduced cut), each inside an
-    annotate range: the trace file holds CUDA kernel events and the
-    ranges; device_memory_stats() is not empty. A trace without device
-    events raises."""
+    """profile_trace around two fused steps (reduced cut), each inside a
+    span: the trace file holds CUDA kernel events, the spans' ranges
+    (`ott.fused_step_<i>`) and the step's own (`ott.train` and its seven
+    parts);
+    device_memory_stats() is not empty. A trace without device events
+    raises."""
     from object_tracking_tpu_torch.utils.profiling import (
-        annotate, device_memory_stats, profile_trace)
+        device_memory_stats, profile_trace, span)
     net = 128
     state = train_state(device, width_div=8, **MOE)
     step = train_step_fn(net, augment=True)
@@ -2219,7 +2221,7 @@ def profiling_check(device) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         with profile_trace(tmp):
             for i, raw in enumerate(raws):
-                with annotate(f'fused_step_{i}'):
+                with span(f'fused_step_{i}'):
                     step(state, raw)
         files = list(Path(tmp).glob('*.pt.trace.json'))
         if len(files) != 1:
@@ -2229,17 +2231,20 @@ def profiling_check(device) -> dict:
             events = json.load(f)['traceEvents']
     kernels = [e for e in events if e.get('cat') == 'kernel']
     ranges = {e.get('name') for e in events
-              if str(e.get('name', '')).startswith('fused_step_')}
+              if str(e.get('name', '')).startswith('ott.fused_step_')}
+    train = {e.get('name') for e in events} & {
+        'ott.' + n for n in ('train', 'to_device', 'augment', 'targets',
+                             'forward', 'loss', 'backward', 'optimizer')}
     stats = device_memory_stats()
     out = {'trace_bytes': size, 'events': len(events),
            'cuda_kernel_events': len(kernels),
-           'annotated_ranges': sorted(ranges),
+           'span_ranges': sorted(ranges), 'train_ranges': sorted(train),
            'device_memory_stats': [{
                k: s.get(k) for k in ('allocated_bytes.all.peak',
                                      'reserved_bytes.all.peak')}
                for s in stats]}
-    if not kernels or len(ranges) != PROFILED_STEPS or not stats \
-            or not stats[0]:
+    if not kernels or len(ranges) != PROFILED_STEPS or len(train) != 8 \
+            or not stats or not stats[0]:
         raise AssertionError(f'profiling: {out}')
     return out
 

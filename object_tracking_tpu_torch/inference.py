@@ -11,6 +11,12 @@ runs, on the predictor's device:
   frame by frame, batched over the B clips, with no host sync;
 
 and one copy of the results to the host at the end.
+
+Each `predict_batch` and `predict_window` call is the span `predict`
+(`utils/profiling.py`), with the spans `predict.h2d` (the frames' copy in),
+`predict.forward`, `predict.decode_nms`, `predict.assign` (the whole
+per-frame loop), `predict.fetch` (every copy out, which waits for the
+device's queued work) and `predict.results` (the detection dicts) inside.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from object_tracking_tpu_torch.config import TRACK_GATE_IOU
 from object_tracking_tpu_torch.ops.decode import boxes_to_list, decode_and_nms
 from object_tracking_tpu_torch.ops.matching import (
     TrackManager, assign_tracks, init_track_state)
+from object_tracking_tpu_torch.utils.profiling import span
 
 
 def float_state(state):
@@ -98,22 +105,31 @@ class JointPredictor:
         """images (B, T, H, W, 3) on the device → numpy (boxes, labels,
         scores, valid) each (B, T, K, ...), ids (B, T, K) or None, and the
         new device states."""
-        out = self.model(images, train=self.batch_bn, initial_state=state,
-                         return_state=True)
-        boxes, labels, scores, valid = decode_and_nms(
-            out[self.head], self.anchors, obj_threshold=self.obj_threshold,
-            nms_threshold=self.nms_threshold, nms_impl=self.nms_impl)
+        with span('predict.forward'):
+            out = self.model(images, train=self.batch_bn,
+                             initial_state=state, return_state=True)
+            state = float_state(out['state'])
+        with span('predict.decode_nms'):
+            boxes, labels, scores, valid = decode_and_nms(
+                out[self.head], self.anchors,
+                obj_threshold=self.obj_threshold,
+                nms_threshold=self.nms_threshold, nms_impl=self.nms_impl)
         ids = None
         if self.matcher == 'greedy':
-            per_frame = []
-            for t in range(images.shape[1]):
-                track_state, ids_t = assign_tracks(
-                    track_state, boxes[:, t], labels[:, t], valid[:, t],
-                    iou_threshold=self.iou_threshold, max_age=self.max_age)
-                per_frame.append(ids_t)
-            ids = torch.stack(per_frame, dim=1).cpu().numpy()
-        state = float_state(out['state'])
-        dets = tuple(a.cpu().numpy() for a in (boxes, labels, scores, valid))
+            with span('predict.assign'):
+                per_frame = []
+                for t in range(images.shape[1]):
+                    track_state, ids_t = assign_tracks(
+                        track_state, boxes[:, t], labels[:, t], valid[:, t],
+                        iou_threshold=self.iou_threshold,
+                        max_age=self.max_age)
+                    per_frame.append(ids_t)
+                ids = torch.stack(per_frame, dim=1)
+        with span('predict.fetch'):
+            if ids is not None:
+                ids = ids.cpu().numpy()
+            dets = tuple(a.cpu().numpy()
+                         for a in (boxes, labels, scores, valid))
         return dets, ids, state, track_state
 
     def _load_window(self, paths: Sequence[str]) -> np.ndarray:
@@ -175,19 +191,23 @@ class JointPredictor:
         state carries across windows. Call `reset_state()` between
         unrelated clips.
         """
-        if isinstance(frames[0], str):
-            x = self._load_window(frames)
-        else:
-            x = np.asarray(frames, np.float32)[None]
-        if self._state is None:
-            self._state = self._zero_state(x.shape[0])
-        if self._track_state is None:
-            self._track_state = init_track_state(self.max_tracks, 1,
-                                                 self.device)
-        dets, ids, self._state, self._track_state = self._run(
-            self._to_device(x), self._state, self._track_state)
-        return self._frames(*(a[0] for a in dets),
-                            None if ids is None else ids[0])
+        with span('predict'):
+            if isinstance(frames[0], str):
+                x = self._load_window(frames)
+            else:
+                x = np.asarray(frames, np.float32)[None]
+            if self._state is None:
+                self._state = self._zero_state(x.shape[0])
+            if self._track_state is None:
+                self._track_state = init_track_state(self.max_tracks, 1,
+                                                     self.device)
+            with span('predict.h2d'):
+                images = self._to_device(x)
+            dets, ids, self._state, self._track_state = self._run(
+                images, self._state, self._track_state)
+            with span('predict.results'):
+                return self._frames(*(a[0] for a in dets),
+                                    None if ids is None else ids[0])
 
     def reset_batch_state(self) -> None:
         """Drop all batched streams' carried state."""
@@ -208,19 +228,23 @@ class JointPredictor:
             raise ValueError(
                 'predict_batch requires matcher="greedy" (the host '
                 'Hungarian path is per-stream)')
-        x = np.asarray(clips, np.float32)
-        b = x.shape[0]
-        if (self._btrack_state is not None
-                and self._btrack_state.next_id.shape[0] != b):
-            self.reset_batch_state()
-        if self._bstate is None:
-            self._bstate = self._zero_state(b)
-            self._btrack_state = init_track_state(self.max_tracks, b,
-                                                  self.device)
-        dets, ids, self._bstate, self._btrack_state = self._run(
-            self._to_device(x), self._bstate, self._btrack_state)
-        return [self._frames(*(a[i] for a in dets), ids[i])
-                for i in range(b)]
+        with span('predict'):
+            x = np.asarray(clips, np.float32)
+            b = x.shape[0]
+            if (self._btrack_state is not None
+                    and self._btrack_state.next_id.shape[0] != b):
+                self.reset_batch_state()
+            if self._bstate is None:
+                self._bstate = self._zero_state(b)
+                self._btrack_state = init_track_state(self.max_tracks, b,
+                                                      self.device)
+            with span('predict.h2d'):
+                images = self._to_device(x)
+            dets, ids, self._bstate, self._btrack_state = self._run(
+                images, self._bstate, self._btrack_state)
+            with span('predict.results'):
+                return [self._frames(*(a[i] for a in dets), ids[i])
+                        for i in range(b)]
 
     def predict_video(self, paths: Sequence, window: int = 4,
                       draw_dir: Optional[str] = None

@@ -20,6 +20,7 @@ import torch
 
 from object_tracking_tpu_torch.config import TRACK_GATE_IOU
 from object_tracking_tpu_torch.ops.boxes import EPS, pairwise_iou_center
+from object_tracking_tpu_torch.utils.profiling import count
 
 
 def _greedy_pairs(iou: torch.Tensor, iou_threshold: float,
@@ -131,6 +132,10 @@ def assign_tracks(state: TrackState, boxes: torch.Tensor,
     their velocity — and retires those unseen for > max_age frames.
 
     Returns (new_state, det_ids (B, M) int32 — -1 for invalid detections).
+
+    Counts (`utils/profiling.count`, with a recorder attached) the greedy
+    loop's steps, B·min(S, M), as `assign.steps` and the matched
+    detections as `assign.matches`.
     """
     s = state.boxes.shape[1]
     m = boxes.shape[1]
@@ -144,6 +149,8 @@ def assign_tracks(state: TrackState, boxes: torch.Tensor,
     match = _greedy_pairs(iou, iou_threshold, min(s, m))      # (B, M)
 
     matched_det = match >= 0
+    count('assign.steps', match.shape[0] * min(s, m))
+    count('assign.matches', lambda: matched_det.sum())
     slot_of_det = torch.where(matched_det, match, 0)
     # which slots got matched this frame (max: the index-0 writes of
     # unmatched detections must not clobber a real hit there)

@@ -42,6 +42,13 @@ copies) and makes no host sync: its metrics stay 0-d device tensors, and
 nothing in it calls `.item()`, `nonzero` or boolean indexing, or branches
 on a device value. The fit loop pulls the metrics once per epoch.
 
+Each train step is the span `train` (`utils/profiling.py`), with the spans
+`to_device`, `augment` and `targets` (the fused joint step's batch
+preparation), `forward` (the model call), `loss`, `backward` (with the
+gradients' collectives) and `optimizer` (`TrainState.apply_gradients`)
+inside; an eval step is the span `eval`, with the same spans inside for
+the parts it runs.
+
 Train steps put the module in `train()` mode, so batch-statistics
 BatchNorm updates the running statistics (a model without BatchNorm, as
 VGG16 or TinyTracker, has none to update); eval steps put it in `eval()`
@@ -66,6 +73,7 @@ from object_tracking_tpu_torch.parallel.collectives import (
     all_reduce_sum_, average_gradients_, sum_gradients_)
 from object_tracking_tpu_torch.parallel.mesh import (
     is_replicated, replica_group, whole_batch)
+from object_tracking_tpu_torch.utils.profiling import span
 
 HOST_KEYS = ('aug_seeds',)      # read on the host: they seed generators
 
@@ -105,19 +113,27 @@ def _merge_time(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
-def _on_mesh(mesh, step: Callable) -> Callable:
+def _on_mesh(mesh, step: Callable, stage: str) -> Callable:
     """`step(state, batch, group)` → `step(state, batch)` over the data
-    group of `mesh`. A batch that `shard_batch` replicated runs with no
-    group, inside `whole_batch()`, where the model's data collectives are
-    off too: the one-rank step on every rank."""
+    group of `mesh`, inside the span `stage` ('train' or 'eval'). A batch
+    that `shard_batch` replicated runs with no group, inside
+    `whole_batch()`, where the model's data collectives are off too: the
+    one-rank step on every rank."""
     def run(state, batch):
-        if mesh is None:
-            return step(state, batch, None)
-        if is_replicated(batch):
-            with whole_batch(mesh.data_group):
+        with span(stage):
+            if mesh is None:
                 return step(state, batch, None)
-        return step(state, batch, mesh.data_group)
+            if is_replicated(batch):
+                with whole_batch(mesh.data_group):
+                    return step(state, batch, None)
+            return step(state, batch, mesh.data_group)
     return run
+
+
+def _moved(batch: Dict, device) -> Dict:
+    """`to_device` inside the span `to_device`."""
+    with span('to_device'):
+        return to_device(batch, device)
 
 
 def _share_metrics(metrics: Dict, keys: Sequence[str], group) -> Dict:
@@ -159,22 +175,24 @@ def _joint_loss(model, batch, anchors, loss_cfg: LossConfig,
     """(loss, metrics): the weighted joint loss (with a data `group`, this
     rank's share of the global loss) and the JAX step's metrics dict (the
     global values), every value a 0-d float32 device tensor."""
-    out = model(batch['images'], train=train)
-    t_loss, t_aux = _yolo_loss_bt(out['track'], batch, anchors, loss_cfg,
-                                  step, group)
-    d_loss, d_aux = _yolo_loss_bt(out['detect'], batch, anchors, loss_cfg,
-                                  step, group)
-    wt, wd = joint_cfg.loss_weight_track, joint_cfg.loss_weight_detect
-    moe_aux = out.get('moe_aux')
-    if moe_aux is None:
-        moe_aux = torch.zeros((), device=t_loss.device)
-    loss = wt * t_loss + wd * d_loss + joint_cfg.moe_aux_weight * moe_aux
-    metrics = {'loss': loss, 'track_loss': t_loss, 'detect_loss': d_loss,
-               'track_recall': t_aux['recall'],
-               'detect_recall': d_aux['recall'], 'moe_aux': moe_aux}
-    for comp in ('loss_xy', 'loss_wh', 'loss_conf', 'loss_class'):
-        metrics[comp] = wt * t_aux[comp] + wd * d_aux[comp]
-    return loss, _share_metrics(metrics, _SHARED_METRICS, group)
+    with span('forward'):
+        out = model(batch['images'], train=train)
+    with span('loss'):
+        t_loss, t_aux = _yolo_loss_bt(out['track'], batch, anchors,
+                                      loss_cfg, step, group)
+        d_loss, d_aux = _yolo_loss_bt(out['detect'], batch, anchors,
+                                      loss_cfg, step, group)
+        wt, wd = joint_cfg.loss_weight_track, joint_cfg.loss_weight_detect
+        moe_aux = out.get('moe_aux')
+        if moe_aux is None:
+            moe_aux = torch.zeros((), device=t_loss.device)
+        loss = wt * t_loss + wd * d_loss + joint_cfg.moe_aux_weight * moe_aux
+        metrics = {'loss': loss, 'track_loss': t_loss,
+                   'detect_loss': d_loss, 'track_recall': t_aux['recall'],
+                   'detect_recall': d_aux['recall'], 'moe_aux': moe_aux}
+        for comp in ('loss_xy', 'loss_wh', 'loss_conf', 'loss_class'):
+            metrics[comp] = wt * t_aux[comp] + wd * d_aux[comp]
+        return loss, _share_metrics(metrics, _SHARED_METRICS, group)
 
 
 def _optimize(state, loss_fn, group=None):
@@ -185,11 +203,13 @@ def _optimize(state, loss_fn, group=None):
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model)
-    loss.backward()
-    params = list(state.model.parameters())
-    sum_gradients_(params, group)
-    average_gradients_(params, replica_group())
-    state.apply_gradients()
+    with span('backward'):
+        loss.backward()
+        params = list(state.model.parameters())
+        sum_gradients_(params, group)
+        average_gradients_(params, replica_group())
+    with span('optimizer'):
+        state.apply_gradients()
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -222,10 +242,10 @@ def make_joint_train_step(anchors, loss_cfg: Optional[LossConfig] = None,
 
     def step(state, batch, group):
         device = _device(state.model)
-        return _train_on(state, to_device(batch, device), anchors.on(device),
-                         loss_cfg, joint_cfg, group)
+        return _train_on(state, _moved(batch, device),
+                         anchors.on(device), loss_cfg, joint_cfg, group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'train')
 
 
 def make_joint_eval_step(anchors, loss_cfg: Optional[LossConfig] = None,
@@ -241,22 +261,26 @@ def make_joint_eval_step(anchors, loss_cfg: Optional[LossConfig] = None,
 
     def step(state, batch, group):
         device = _device(state.model)
-        return _eval_on(state, to_device(batch, device), anchors.on(device),
-                        loss_cfg, joint_cfg, use_batch_stats, group)
+        return _eval_on(state, _moved(batch, device),
+                        anchors.on(device), loss_cfg, joint_cfg,
+                        use_batch_stats, group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'eval')
 
 
 def _prepare_raw_joint_batch(batch, aug_cfg, encode_fn, augment: bool):
     """Raw device batch {'images_u8' (B,T,H,W,3) uint8, 'boxes' (B,T,M,4)
     pixels, 'cls', 'valid', 'aug_seeds' (B,) host ints} → {'images',
-    'y_true', 'true_boxes'}, all on the device."""
-    images = batch['images_u8'].to(torch.float32) / 255.0
-    boxes = batch['boxes'].to(torch.float32)
-    if augment:
-        images, boxes = augment_sequences_batch(batch['aug_seeds'], images,
-                                                boxes, aug_cfg)
-    y, b = encode_fn(boxes, batch['cls'], batch['valid'])
+    'y_true', 'true_boxes'}, all on the device; /255 and augmentation in
+    the span `augment`, the targets in `targets`."""
+    with span('augment'):
+        images = batch['images_u8'].to(torch.float32) / 255.0
+        boxes = batch['boxes'].to(torch.float32)
+        if augment:
+            images, boxes = augment_sequences_batch(
+                batch['aug_seeds'], images, boxes, aug_cfg)
+    with span('targets'):
+        y, b = encode_fn(boxes, batch['cls'], batch['valid'])
     return {'images': images, 'y_true': y, 'true_boxes': b}
 
 
@@ -288,12 +312,12 @@ def make_joint_train_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
 
     def step(state, raw, group):
         device = _device(state.model)
-        batch = _prepare_raw_joint_batch(to_device(raw, device), aug_cfg,
-                                         encode, augment)
+        batch = _prepare_raw_joint_batch(_moved(raw, device),
+                                         aug_cfg, encode, augment)
         return _train_on(state, batch, anchors.on(device), loss_cfg,
                          joint_cfg, group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'train')
 
 
 def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
@@ -313,12 +337,12 @@ def make_joint_eval_step_fused(anchors, loss_cfg=None, joint_cfg=None, *,
 
     def step(state, raw, group):
         device = _device(state.model)
-        batch = _prepare_raw_joint_batch(to_device(raw, device), None,
+        batch = _prepare_raw_joint_batch(_moved(raw, device), None,
                                          encode, augment=False)
         return _eval_on(state, batch, anchors.on(device), loss_cfg,
                         joint_cfg, use_batch_stats, group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'eval')
 
 
 DETECTOR_METRICS = ('loss', 'recall', 'loss_xy', 'loss_wh', 'loss_conf',
@@ -339,20 +363,23 @@ def make_detector_train_step(anchors,
     anchors = _Anchors(anchors)
 
     def loss_fn(model, batch, step, group):
-        out = model(batch['images'], train=True)
-        loss, aux = _yolo(out['netout'], batch['y_true'],
-                          batch['true_boxes'],
-                          anchors.on(batch['images'].device), loss_cfg, step,
-                          group)
-        return loss, _share_metrics({k: aux[k] for k in DETECTOR_METRICS},
-                                    _SHARED_DETECTOR, group)
+        with span('forward'):
+            out = model(batch['images'], train=True)
+        with span('loss'):
+            loss, aux = _yolo(out['netout'], batch['y_true'],
+                              batch['true_boxes'],
+                              anchors.on(batch['images'].device), loss_cfg,
+                              step, group)
+            return loss, _share_metrics(
+                {k: aux[k] for k in DETECTOR_METRICS}, _SHARED_DETECTOR,
+                group)
 
     def step(state, batch, group):
-        batch = to_device(batch, _device(state.model))
+        batch = _moved(batch, _device(state.model))
         return _optimize(state, lambda model: loss_fn(
             model, batch, state.step, group), group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'train')
 
 
 def head_anchor_cells(head_specs: Sequence[Tuple], net_size
@@ -385,29 +412,32 @@ def make_multihead_detector_train_step(head_specs, net_size,
     cells = [_Anchors(a) for a in head_anchor_cells(head_specs, net_size)]
 
     def loss_fn(model, batch, step, group):
-        out = model(batch['images'], train=True)
+        with span('forward'):
+            out = model(batch['images'], train=True)
         device = batch['images'].device
         total, metrics, recalls = 0.0, {}, []
-        for i, anchors in enumerate(cells):
-            loss, aux = _yolo(out['heads'][i], batch['y_true'][i],
-                              batch['true_boxes'][i], anchors.on(device),
-                              loss_cfg, step, group)
-            total = total + loss
-            for k in ('loss', 'loss_xy', 'loss_wh', 'loss_conf',
-                      'loss_class'):
-                metrics[k] = metrics[k] + aux[k] if k in metrics else aux[k]
-            recalls.append(aux['recall'])
-        metrics['recall'] = sum(recalls) / len(recalls)
-        return total, _share_metrics({k: metrics[k]
-                                      for k in DETECTOR_METRICS},
-                                     _SHARED_DETECTOR, group)
+        with span('loss'):
+            for i, anchors in enumerate(cells):
+                loss, aux = _yolo(out['heads'][i], batch['y_true'][i],
+                                  batch['true_boxes'][i], anchors.on(device),
+                                  loss_cfg, step, group)
+                total = total + loss
+                for k in ('loss', 'loss_xy', 'loss_wh', 'loss_conf',
+                          'loss_class'):
+                    metrics[k] = (metrics[k] + aux[k] if k in metrics
+                                  else aux[k])
+                recalls.append(aux['recall'])
+            metrics['recall'] = sum(recalls) / len(recalls)
+            return total, _share_metrics({k: metrics[k]
+                                          for k in DETECTOR_METRICS},
+                                         _SHARED_DETECTOR, group)
 
     def step(state, batch, group):
-        batch = to_device(batch, _device(state.model))
+        batch = _moved(batch, _device(state.model))
         return _optimize(state, lambda model: loss_fn(
             model, batch, state.step, group), group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'train')
 
 
 def _huber(pred: torch.Tensor, target: torch.Tensor,
@@ -436,13 +466,16 @@ def _tiny_loss(model, batch, heatmap: bool, loss_fn: Callable, group=None):
     """(loss, metrics) of the single-object tracker on a device batch,
     with the heatmap accuracy for the heatmap head; with a data `group`,
     the loss is this rank's share and the metrics are global."""
-    pred = model(batch['feats'], batch['det'])
-    target = batch['target'].float()
-    loss = loss_fn(pred, target, group=group)
-    metrics = _share_metrics({'loss': loss}, ('loss',), group)
-    if heatmap:
-        metrics['heatmap_acc'] = heatmap_accuracy(pred, target, group=group)
-    return loss, metrics
+    with span('forward'):
+        pred = model(batch['feats'], batch['det'])
+    with span('loss'):
+        target = batch['target'].float()
+        loss = loss_fn(pred, target, group=group)
+        metrics = _share_metrics({'loss': loss}, ('loss',), group)
+        if heatmap:
+            metrics['heatmap_acc'] = heatmap_accuracy(pred, target,
+                                                      group=group)
+        return loss, metrics
 
 
 def make_tiny_train_step(heatmap: bool = False,
@@ -453,11 +486,11 @@ def make_tiny_train_step(heatmap: bool = False,
     loss_fn = _tiny_loss_fn(loss_name)
 
     def step(state, batch, group):
-        batch = to_device(batch, _device(state.model))
+        batch = _moved(batch, _device(state.model))
         return _optimize(state, lambda model: _tiny_loss(
             model, batch, heatmap, loss_fn, group), group)
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'train')
 
 
 def make_tiny_eval_step(heatmap: bool = False,
@@ -467,7 +500,8 @@ def make_tiny_eval_step(heatmap: bool = False,
     @torch.no_grad()
     def step(state, batch, group):
         state.model.eval()
-        return _tiny_loss(state.model, to_device(batch, _device(state.model)),
+        return _tiny_loss(state.model,
+                          _moved(batch, _device(state.model)),
                           heatmap, loss_fn, group)[1]
 
-    return _on_mesh(mesh, step)
+    return _on_mesh(mesh, step, 'eval')
