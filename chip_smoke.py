@@ -22,15 +22,21 @@ JSON line:
    torch.profiler, summed over its two passes (mask, walk) and split by
    pass, its call time by CUDA events, the wrapper's host cost per call
    (host_us, beside torch_launch_us, the host cost of one plain torch
-   launch), the plain twin's time and the bound;
+   launch), the plain twin's time and the bound. Then assign: the
+   identity-assignment kernel against its plain twin on a seeded 40-frame
+   sequence at B=8 and B=1 (T=4, S=64, M=128, the table filled), and on
+   dense, tied frames that take each of its sort branches up to S=1024,
+   M=4096: ids and integer fields equal, boxes and vel bit for bit, one
+   launch a window; its device time, call time, host cost, the twin's
+   time and the bound;
 3. path: a JointPredictor at bench.py's model (416², T=4, 12 classes,
    5 anchors, ConvLSTM-512, full width, random weights from a seed)
    serves three streamed predict_batch calls at B=8 and three
-   predict_window calls at B=1. The kernel's launch count must rise by
-   one per call, and the same calls with impl='sort' must give identical
-   detections and ids. Then frames/s at B=1 and B=8, float32 and
-   bfloat16, each the median of three samples (all three kept: these
-   calls are host-bound and spread widely);
+   predict_window calls at B=1. The NMS and assignment kernels' launch
+   counts must each rise by one per call, and the same calls with
+   impl='sort' must give identical detections and ids. Then frames/s at
+   B=1 and B=8, float32 and bfloat16, each the median of three samples
+   (all three kept: these calls are host-bound and spread widely);
 4. profile: per predict call, device time by kernel category under
    torch.profiler, the device's busy and idle share of the call's wall
    time, and the costliest kernels;
@@ -198,7 +204,7 @@ import numpy as np
 import torch
 
 from object_tracking_tpu_torch.config import (
-    LABELS_COCO, LABELS_MOT17, YOLOV2_ANCHORS, DetectorConfig)
+    LABELS_COCO, LABELS_MOT17, TRACK_GATE_IOU, YOLOV2_ANCHORS, DetectorConfig)
 from object_tracking_tpu_torch.data import (
     Annotation, ObjectAnnotation, TrackerSequenceBatches,
     make_sequence_windows)
@@ -210,8 +216,11 @@ from object_tracking_tpu_torch.models import (
 from object_tracking_tpu_torch.models.darknet19 import BatchNorm, init_like_flax
 from object_tracking_tpu_torch.models.darknet_cfg import (
     build_from_cfg, head_grids, head_specs)
-from object_tracking_tpu_torch.ops.boxes import iou_center
+from object_tracking_tpu_torch.ops import matching
+from object_tracking_tpu_torch.ops.boxes import (iou_center,
+                                                pairwise_iou_center)
 from object_tracking_tpu_torch.ops.cuda import _build
+from object_tracking_tpu_torch.ops.cuda import assign as cuda_assign
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
 from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
@@ -534,6 +543,220 @@ def kernel_phase(device) -> dict:
             'torch_launch_us': host_us(lambda: x.add_(1.0), 2000)}
 
 
+ASSIGN_SLOTS = 64      # JointPredictor's max_tracks
+ASSIGN_DETS = 128      # decode_and_nms's top-K cap
+ASSIGN_FRAMES = 40
+
+
+def track_sequence(seed: int, b: int, frames: int, m: int, objects: int,
+                   classes: int = NUM_CLASSES, blank=()):
+    """B clips of `frames` frames with M detection rows (as
+    tests/test_torch_assign_kernel.py::sequence): `objects` boxes moving at
+    constant velocity with noise, dropping out at random and now and then
+    flipping class, clutter in the other rows, rows shuffled per frame, no
+    valid row in the frames of `blank`."""
+    rng = np.random.RandomState(seed)
+    start = rng.uniform(0.1, 0.9, (b, 1, objects, 2))
+    vel = rng.uniform(-0.02, 0.02, (b, 1, objects, 2))
+    size = rng.uniform(0.05, 0.2, (b, 1, objects, 2))
+    cls = rng.randint(0, classes, (b, 1, objects))
+    boxes = rng.uniform(0.05, 0.95, (b, frames, m, 4)) * [1, 1, .2, .2]
+    labels = rng.randint(0, classes, (b, frames, m))
+    valid = rng.rand(b, frames, m) > 0.5
+    t = np.arange(frames)[None, :, None, None]
+    boxes[:, :, :objects, :2] = (start + vel * t + rng.normal(
+        0, 0.003, (b, frames, objects, 2)))
+    boxes[:, :, :objects, 2:] = size
+    flip = rng.rand(b, frames, objects) < 0.05
+    labels[:, :, :objects] = np.where(flip, (cls + 1) % classes, cls)
+    valid[:, :, :objects] = rng.rand(b, frames, objects) > 0.2
+    valid[:, list(blank)] = False
+    order = np.argsort(rng.rand(b, frames, m), axis=-1)
+    return (np.take_along_axis(boxes, order[..., None], 2).astype(np.float32),
+            np.take_along_axis(labels, order, 2).astype(np.int32),
+            np.take_along_axis(valid, order, 2))
+
+
+def clustered_sequence(seed: int, b: int, frames: int, m: int,
+                       objects: int, classes: int):
+    """B clips of `frames` frames whose M detection rows are all valid
+    copies of `objects` boxes on a 1/256 grid, each coordinate nudged by
+    one step or none (as tests/test_torch_assign_kernel.py::clustered):
+    many IoUs tie, and a track overlaps every copy of its object, so the
+    gated pairs are dense."""
+    rng = np.random.RandomState(seed)
+    grid = 1 / 256
+    centre = rng.randint(64, 192, (b, 1, objects, 2)) * grid
+    size = rng.randint(24, 48, (b, 1, objects, 2)) * grid
+    drift = rng.randint(-2, 3, (b, 1, objects, 2)) * grid
+    t = np.arange(frames)[None, :, None, None]
+    k = rng.randint(0, objects, (b, frames, m))
+    clip, frame = np.arange(b)[:, None, None], np.arange(frames)[None, :, None]
+    at = (centre + drift * t)[clip, frame, k]
+    wh = np.broadcast_to(size, (b, frames, objects, 2))[clip, frame, k]
+    boxes = np.concatenate([at, wh], -1) + rng.randint(
+        -1, 2, (b, frames, m, 4)) * grid
+    return (boxes.astype(np.float32), (k % classes).astype(np.int32),
+            np.ones((b, frames, m), bool))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def assign_bound(b: int, t: int, s: int, m: int) -> dict:
+    """Least time for one window's assignment: bytes (the table read and
+    written once, each detection read once, its id written once) over HBM
+    rate, operations (the masked IoU of every (slot, detection) pair of
+    every frame) over the float32 rate."""
+    table = b * s * (4 * 4 + 2 * 4 + 3 * 4 + 1) + 4 * b
+    nbytes = 2 * table + b * t * m * (4 * 4 + 4 + 1 + 4) + 4 * b
+    ops = b * t * s * m * IOU_OPS_PER_PAIR
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {'bound_ms': max(bytes_ms, ops_ms),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'bytes': nbytes, 'operations': ops}
+
+
+def gated_pairs(state, boxes, labels, valid, gate: float) -> int:
+    """The most pairs at or above the gate in one clip's frame: the keys
+    the kernel sorts there (no IoU in these frames is NaN)."""
+    pred = torch.cat([state.boxes[..., :2] + state.vel,
+                      state.boxes[..., 2:]], dim=-1)
+    iou = pairwise_iou_center(pred, boxes)
+    ok = (state.active[:, :, None] & valid[:, None, :]
+          & (state.labels[:, :, None] == labels[:, None, :]))
+    return int(((iou >= gate) & ok).flatten(1).sum(dim=1).max())
+
+
+def assign_against_plain(device, s: int, t: int, seq, name: str) -> dict:
+    """The kernel over windows of T frames against the plain twin frame by
+    frame, both from an empty table: ids and every integer field equal,
+    boxes and vel bit for bit after each window, one launch a window.
+    Returns what the frames exercised and the largest |kernel - twin| of
+    boxes and vel."""
+    boxes, labels, valid = (torch.from_numpy(a).to(device) for a in seq)
+    b, frames, m = boxes.shape[:3]
+    kernel = matching.init_track_state(s, b, device)
+    plain = matching.init_track_state(s, b, device)
+    launched = matching.assign_tracks.launches
+    full = minus_one = retired = gated = 0
+    diff = 0.0
+    for w0 in range(0, frames, t):
+        w = slice(w0, w0 + t)
+        before = kernel
+        kernel, kids = matching.assign_tracks(kernel, boxes[:, w],
+                                              labels[:, w], valid[:, w])
+        pids = []
+        for f in range(w0, min(w0 + t, frames)):
+            gated = max(gated, gated_pairs(plain, boxes[:, f], labels[:, f],
+                                           valid[:, f], TRACK_GATE_IOU))
+            plain, ids, _ = matching.assign_tracks_plain(
+                plain, boxes[:, f:f + 1], labels[:, f:f + 1],
+                valid[:, f:f + 1])
+            pids.append(ids)
+        torch.cuda.synchronize()
+        same = [torch.equal(kids, torch.cat(pids, dim=1))] + [
+            same_bits(x, y) for x, y in zip(kernel, plain)]
+        diff = max([diff] + [float((x - y).abs().max())
+                             for x, y in zip(kernel[:2], plain[:2])])
+        if not all(same):
+            raise AssertionError(
+                f'assign_tracks {name} window {w0 // t}: kernel and plain '
+                f'differ in ' + ', '.join(
+                    n for n, ok in zip(('det_ids',) +
+                                       matching.TrackState._fields, same)
+                    if not ok))
+        full += int(kernel.active.all(dim=1).sum())
+        minus_one += int(((kids == -1) & valid[:, w]).sum())
+        retired += int((before.active & ((kernel.ids != before.ids)
+                                         | ~kernel.active)).sum())
+    launched = matching.assign_tracks.launches - launched
+    if launched != -(-frames // t):
+        raise AssertionError(f'assign_tracks {name}: {launched} launches '
+                             f'in {frames} frames at T={t}')
+    return {'name': name, 'b': b, 't': t, 'slots': s, 'dets': m,
+            'frames': frames, 'windows': launched, 'launches': launched,
+            'bitwise_equal': True, 'max_abs_diff': diff,
+            'full_table_frames': full, 'unplaced_detections': minus_one,
+            'retired': retired, 'max_gated_pairs': gated}
+
+
+# (S, M, B, frames, clustered objects and classes, or None for
+# track_sequence, keys in shared memory, bitonic sort): each of the
+# kernel's sort branches, up to the caps
+ASSIGN_BRANCHES = {
+    'smem-bitonic': (64, 128, 2, 8, (2, 1), True, True),
+    'scratch-rank': (64, 512, 2, 8, None, False, False),
+    'scratch-bitonic': (64, 512, 2, 8, (4, 1), False, True),
+    'caps-bitonic': (1024, 4096, 1, 3, (256, 16), False, True),
+}
+
+
+def assign_phase(device) -> dict:
+    """The assignment kernel against its plain twin on a seeded 40-frame
+    sequence at B=8 and B=1 (T=4, S=64, M=128, 90 objects: the table
+    fills and the excess detections get -1; frames 17 to 20 have no valid
+    row, so every track retires), then on frames that take each of its
+    sort branches (keys in shared memory or the device scratch, rank sort
+    or bitonic network; dense, tied frames up to S=1024, M=4096):
+    ids and every integer field equal, boxes and vel bit for bit, one
+    launch a window. At each B of the serving shape, the kernel's device
+    time under torch.profiler, its call time by CUDA events, the wrapper's
+    host cost per call, the plain twin's time and the bound."""
+    t, s, m = T, ASSIGN_SLOTS, ASSIGN_DETS
+    checks, branches, times = [], [], {}
+    for name, (bs, bm, bb, frames, dense, in_smem,
+               bitonic) in ASSIGN_BRANCHES.items():
+        plan = cuda_assign.launch_plan(bs, bm)
+        seq = (clustered_sequence(17, bb, frames, bm, *dense) if dense else
+               track_sequence(17, bb, frames, bm, objects=90))
+        check = assign_against_plain(device, bs, t, seq, name)
+        check.update(threads=plan['threads'],
+                     keys_in_smem=plan['keys_in_smem'],
+                     bitonic=check['max_gated_pairs'] > 4 * plan['threads'])
+        if (check['keys_in_smem'], check['bitonic']) != (in_smem, bitonic) \
+                or not check['max_gated_pairs'] or \
+                not check['unplaced_detections']:
+            raise AssertionError(f'assign_tracks {name}: not the branch '
+                                 f'meant: {check}')
+        branches.append(check)
+    for b in (8, 1):
+        seq = track_sequence(11 + b, b, ASSIGN_FRAMES, m, objects=90,
+                             blank=range(17, 21))
+        check = assign_against_plain(device, s, t, seq, f'b{b}')
+        if not (check['full_table_frames'] and check['unplaced_detections']
+                and check['retired']):
+            raise AssertionError(f'assign_tracks B={b}: {check}')
+        checks.append(check)
+        boxes, labels, valid = (torch.from_numpy(a).to(device) for a in seq)
+
+        state = matching.init_track_state(s, b, device)
+        w = slice(0, t)
+
+        def call(state=state, w=w, boxes=boxes, labels=labels, valid=valid):
+            return matching.assign_tracks(state, boxes[:, w], labels[:, w],
+                                          valid[:, w])
+
+        def plain_call(state=state, w=w, boxes=boxes, labels=labels,
+                       valid=valid):
+            return matching.assign_tracks_plain(state, boxes[:, w],
+                                                labels[:, w], valid[:, w])
+        times[f'b{b}'] = {
+            'shape': {'B': b, 'T': t, 'S': s, 'M': m},
+            'plan': dict(cuda_assign.launch_plan(s, m)),
+            'device': op_device_ms(call, 'assign_tracks', 50),
+            'call_ms': cuda_ms(call, iters=200, warmup=10),
+            'host_us': host_us(call, 500),
+            'plain_ms': cuda_ms(plain_call, iters=5, warmup=1),
+            **assign_bound(b, t, s, m)}
+    return {'phase': 'assign', 'checks': checks, 'branches': branches,
+            'times': times}
+
+
 def requests(rng, batch: int, count: int):
     return [rng.rand(batch, T, NET, NET, 3).astype(np.float32)
             for _ in range(count)]
@@ -671,11 +894,14 @@ def path_phase(device, smi: str) -> dict:
     torch.backends.cudnn.deterministic = True    # both runs: same netouts
     kernel_pred = JointPredictor(model, YOLOV2_ANCHORS, **kwargs)
     cuda_nms.nms_scores.launches = 0
+    matching.assign_tracks.launches = 0
     results, calls = serve(kernel_pred, batch_reqs, window_reqs)
     launches = cuda_nms.nms_scores.launches
-    if launches != calls:
-        raise AssertionError(f'nms_scores launched {launches} times in '
-                             f'{calls} predict calls')
+    assigned = matching.assign_tracks.launches
+    if launches != calls or assigned != calls:
+        raise AssertionError(f'nms_scores launched {launches} times and '
+                             f'assign_tracks {assigned} times in {calls} '
+                             f'predict calls')
     sort_pred = JointPredictor(model, YOLOV2_ANCHORS, nms_impl='sort',
                                **kwargs)
     sort_results, _ = serve(sort_pred, batch_reqs, window_reqs)
@@ -705,8 +931,8 @@ def path_phase(device, smi: str) -> dict:
             'anchors': 5, 'convlstm_features': 512, 'width_div': 1,
             'obj_threshold': obj_threshold, 'nms_probe': probe,
             'predict_calls': calls, 'nms_launches': launches,
-            'kernel_equals_sort': True, **summary, **rates,
-            'card': smi}, profiles
+            'assign_launches': assigned, 'kernel_equals_sort': True,
+            **summary, **rates, 'card': smi}, profiles
 
 
 # ------------------------------------------------------------- detector path
@@ -3181,6 +3407,9 @@ def main() -> int:
     kern = kernel_phase(device)
     emit({'phase': 'kernel', **kern, 'card': smi})
     took('kernel')
+    assign = assign_phase(device)
+    emit({**assign, 'card': smi})
+    took('assign')
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
@@ -3245,6 +3474,11 @@ def main() -> int:
                  for c in dn['checks'])
     dn_f8 = dn['times']['f8']
     k1 = kern['times'][f'32x128x{NUM_CLASSES}']
+    a8 = assign['times']['b8']
+    assign_launches = {
+        'assign_phase': sum(c['launches'] for c in assign['checks']),
+        'assign_branches': sum(c['launches'] for c in assign['branches']),
+        'joint_path': path['assign_launches']}
     emit({'kernels': [{
         'name': 'nms_scores',
         'route': 'cuda',
@@ -3288,6 +3522,27 @@ def main() -> int:
         'bound_ms': dn['bound_ms'], 'bound_by': dn['bound_by'],
         # no installed PyTorch call computes per-class greedy NMS, let
         # alone with the region decode fused in
+        'library_ms': None}, {
+        'name': 'assign_tracks',
+        'route': 'cuda',
+        'source': 'object_tracking_tpu_torch/ops/cuda/csrc/assign_tracks.cu',
+        'replaces': None,
+        'custom_op': 'ott_torch::assign_tracks',
+        'shapes': a8['shape'],
+        'launches': sum(assign_launches.values()),
+        'launches_by_path': assign_launches,
+        'max_abs_diff': max(c['max_abs_diff'] for c in
+                            assign['checks'] + assign['branches']),
+        'branches': {c['name']: {k: c[k] for k in (
+            'slots', 'dets', 'threads', 'keys_in_smem', 'bitonic',
+            'max_gated_pairs')} for c in assign['branches']},
+        'ms': a8['device']['ms'] or a8['call_ms'],
+        'ms_b1': assign['times']['b1']['device']['ms'],
+        'call_ms': a8['call_ms'],
+        'host_us': a8['host_us'],
+        'plain_ms': a8['plain_ms'],
+        'bound_ms': a8['bound_ms'], 'bound_by': a8['bound_by'],
+        # no installed PyTorch call computes greedy track assignment
         'library_ms': None}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

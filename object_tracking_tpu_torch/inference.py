@@ -8,14 +8,16 @@ runs, on the predictor's device:
 - decode of every frame and per-class greedy NMS for all B·T frames in ONE
   call (on CUDA: one launch of the NMS kernel, `ops/cuda/nms.py`);
 - with matcher='greedy', identity assignment (`ops/matching.assign_tracks`)
-  frame by frame, batched over the B clips, with no host sync;
+  of all T frames in order, batched over the B clips, in ONE call (on
+  CUDA: one launch of the assignment kernel, `ops/cuda/assign.py`), with
+  no host sync;
 
 and one copy of the results to the host at the end.
 
 Each `predict_batch` and `predict_window` call is the span `predict`
 (`utils/profiling.py`), with the spans `predict.h2d` (the frames' copy in),
-`predict.forward`, `predict.decode_nms`, `predict.assign` (the whole
-per-frame loop), `predict.fetch` (every copy out, which waits for the
+`predict.forward`, `predict.decode_nms`, `predict.assign` (the window's
+identity assignment), `predict.fetch` (every copy out, which waits for the
 device's queued work) and `predict.results` (the detection dicts) inside.
 """
 
@@ -117,14 +119,9 @@ class JointPredictor:
         ids = None
         if self.matcher == 'greedy':
             with span('predict.assign'):
-                per_frame = []
-                for t in range(images.shape[1]):
-                    track_state, ids_t = assign_tracks(
-                        track_state, boxes[:, t], labels[:, t], valid[:, t],
-                        iou_threshold=self.iou_threshold,
-                        max_age=self.max_age)
-                    per_frame.append(ids_t)
-                ids = torch.stack(per_frame, dim=1)
+                track_state, ids = assign_tracks(
+                    track_state, boxes, labels, valid,
+                    iou_threshold=self.iou_threshold, max_age=self.max_age)
         with span('predict.fetch'):
             if ids is not None:
                 ids = ids.cpu().numpy()

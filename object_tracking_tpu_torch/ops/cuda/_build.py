@@ -9,7 +9,8 @@ already there. All missing libraries are
 compiled together, one `nvcc` process per source.
 
 Nothing here runs at import time; `load(name)` is called by a kernel
-wrapper the first time it launches on a CUDA tensor.
+wrapper the first time it launches on a CUDA tensor, and builds every
+missing library then.
 """
 
 from __future__ import annotations
@@ -90,10 +91,12 @@ def build(names: List[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu. The first load builds every
+    missing library under csrc/ in the same round, so a fresh checkout
+    pays one parallel round of nvcc, whichever kernel launches first."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(sources())
         lib = ctypes.CDLL(str(_library_path(name)))
         _loaded[name] = lib
     return lib

@@ -4,9 +4,12 @@ Port of `object_tracking_tpu/ops/matching.py`:
 
 - `greedy_match`: fixed-shape greedy best-IoU matching;
 - `TrackState` / `init_track_state` / `assign_tracks`: the fixed-shape
-  track table and one frame of class-aware, motion-aware assignment,
-  batched over a leading clip dimension B. Nothing in it reads a tensor
-  value on the host, so a frame costs no device sync;
+  track table and class-aware, motion-aware assignment over one frame or
+  a window of T frames, batched over a leading clip dimension B. It is
+  the custom op `ott_torch::assign_tracks`: on CUDA one launch of the
+  kernel `ops/cuda/csrc/assign_tracks.cu` for the whole window, with no
+  host sync; on the CPU its plain twin `assign_tracks_plain`, frame by
+  frame;
 - `hungarian_match` / `TrackManager`: the host-side optimal matcher and
   track book-keeping, in numpy/scipy with their own IoU.
 """
@@ -20,6 +23,7 @@ import torch
 
 from object_tracking_tpu_torch.config import TRACK_GATE_IOU
 from object_tracking_tpu_torch.ops.boxes import EPS, pairwise_iou_center
+from object_tracking_tpu_torch.ops.cuda import assign as cuda_assign
 from object_tracking_tpu_torch.utils.profiling import count
 
 
@@ -117,28 +121,45 @@ def _gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return src.gather(1, idx.expand(index.shape + src.shape[2:]))
 
 
-def assign_tracks(state: TrackState, boxes: torch.Tensor,
+def _sorted_scan_pairs(iou: torch.Tensor, iou_threshold: float
+                       ) -> torch.Tensor:
+    """`_greedy_pairs` on a batched (B, S, M) masked IoU matrix, as the
+    kernel computes it: one scan over the pairs with IoU >= threshold,
+    sorted by the key ((0x7fffffff - IoU bits) << 32) | (i << 16) | j
+    (IoU descending, flat index ascending), accepting a pair while its row
+    and column are both free. A NaN IoU stops the greedy loop at its first
+    step (argmax takes it, and it never clears the threshold), so a clip
+    with one matches nothing. The threshold must be in (0, 1], where the
+    gated IoUs are positive floats whose bits order as integers. Returns
+    (B, M) int64: the matched row per column, or -1. Reads the gated pairs
+    on the host."""
+    b, s, m = iou.shape
+    nan = torch.isnan(iou).flatten(1).any(dim=1)
+    clip, i, j = ((iou >= iou_threshold) & ~nan[:, None, None]).nonzero(
+        as_tuple=True)
+    bits = iou[clip, i, j].view(torch.int32).to(torch.int64)
+    keys = ((0x7fffffff - bits) << 32) | (i << 16) | j
+    order = torch.sort(keys, stable=True).indices
+    order = order[torch.sort(clip[order], stable=True).indices]
+    match = [[-1] * m for _ in range(b)]
+    used_rows = [set() for _ in range(b)]
+    for c, r, col in zip(clip[order].tolist(), i[order].tolist(),
+                         j[order].tolist()):
+        if r not in used_rows[c] and match[c][col] < 0:
+            used_rows[c].add(r)
+            match[c][col] = r
+    return torch.tensor(match, dtype=torch.int64,
+                        device=iou.device).reshape(b, m)
+
+
+def _assign_frame(state: TrackState, boxes: torch.Tensor,
                   labels: torch.Tensor, valid: torch.Tensor,
-                  iou_threshold: float = TRACK_GATE_IOU, max_age: int = 3,
-                  vel_smooth: float = 0.6
-                  ) -> Tuple[TrackState, torch.Tensor]:
-    """One frame of class-aware, motion-aware greedy track assignment for
-    B clips at once: boxes (B, M, 4), labels (B, M), valid (B, M).
-
-    Matches current detections to live tracks by descending IoU against
-    each track's constant-velocity predicted box, assigns fresh ids to
-    unmatched detections (into free slots; when the table is full the
-    excess detections get id -1), ages unmatched tracks — which coast along
-    their velocity — and retires those unseen for > max_age frames.
-
-    Returns (new_state, det_ids (B, M) int32 — -1 for invalid detections).
-
-    Counts (`utils/profiling.count`, with a recorder attached) the greedy
-    loop's steps, B·min(S, M), as `assign.steps` and the matched
-    detections as `assign.matches`.
-    """
+                  iou_threshold: float, max_age: int, vel_smooth: float
+                  ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
+    """One frame of `assign_tracks_plain`: boxes (B, M, 4), labels (B, M),
+    valid (B, M) → (new_state, det_ids (B, M) int32, matched detections
+    per clip (B,) int32)."""
     s = state.boxes.shape[1]
-    m = boxes.shape[1]
     labels = labels.to(torch.int32)
     pred_boxes = torch.cat([state.boxes[..., :2] + state.vel,
                             state.boxes[..., 2:]], dim=-1)    # (B, S, 4)
@@ -146,11 +167,9 @@ def assign_tracks(state: TrackState, boxes: torch.Tensor,
     ok = (state.active[:, :, None] & valid[:, None, :]
           & (state.labels[:, :, None] == labels[:, None, :]))
     iou = torch.where(ok, iou, -1.0)
-    match = _greedy_pairs(iou, iou_threshold, min(s, m))      # (B, M)
+    match = _sorted_scan_pairs(iou, iou_threshold)            # (B, M)
 
     matched_det = match >= 0
-    count('assign.steps', match.shape[0] * min(s, m))
-    count('assign.matches', lambda: matched_det.sum())
     slot_of_det = torch.where(matched_det, match, 0)
     # which slots got matched this frame (max: the index-0 writes of
     # unmatched detections must not clobber a real hit there)
@@ -207,7 +226,166 @@ def assign_tracks(state: TrackState, boxes: torch.Tensor,
         boxes=new_boxes, vel=new_vel, labels=new_labels, ids=new_ids,
         age=age, active=active,
         next_id=state.next_id + placeable.sum(dim=1, dtype=torch.int32))
-    return new_state, det_ids
+    return new_state, det_ids, matched_det.sum(dim=1, dtype=torch.int32)
+
+
+def assign_tracks_plain(state: TrackState, boxes: torch.Tensor,
+                        labels: torch.Tensor, valid: torch.Tensor,
+                        iou_threshold: float = TRACK_GATE_IOU,
+                        max_age: int = 3, vel_smooth: float = 0.6
+                        ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, frame by frame: a window
+    of T frames for B clips, boxes (B, T, M, 4), labels (B, T, M), valid
+    (B, T, M) → (the table after the last frame, contiguous; det_ids
+    (B, T, M) int32; matched detections per clip over the window (B,)
+    int32). Each frame matches by the kernel's sorted scan
+    (`_sorted_scan_pairs`), which reads the gated pairs on the host."""
+    ids, matches = [], torch.zeros_like(state.next_id)
+    for t in range(boxes.shape[1]):
+        state, ids_t, matched = _assign_frame(
+            state, boxes[:, t], labels[:, t], valid[:, t], iou_threshold,
+            max_age, vel_smooth)
+        ids.append(ids_t)
+        matches = matches + matched
+    b, t, m = boxes.shape[:3]
+    det_ids = torch.stack(ids, dim=1) if ids else torch.empty(
+        (b, t, m), dtype=torch.int32, device=boxes.device)
+    return (TrackState(*(x.contiguous() for x in state)), det_ids,
+            matches)
+
+
+def _check_assign(table: Tuple[torch.Tensor, ...], boxes: torch.Tensor,
+                  labels: torch.Tensor, valid: torch.Tensor,
+                  iou_threshold: float) -> None:
+    if not 0.0 < iou_threshold <= 1.0:
+        # the sorted scan orders the gated IoUs by their bits
+        raise ValueError(f'assign_tracks takes a gate in (0, 1], got '
+                         f'{iou_threshold}')
+    b, s = table[0].shape[:2]
+    want = {'boxes': ((b, s, 4), torch.float32),
+            'vel': ((b, s, 2), torch.float32),
+            'labels': ((b, s), torch.int32), 'ids': ((b, s), torch.int32),
+            'age': ((b, s), torch.int32), 'active': ((b, s), torch.bool),
+            'next_id': ((b,), torch.int32)}
+    for (name, (shape, dtype)), x in zip(want.items(), table):
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f'track state {name}: expected {shape} '
+                             f'{dtype}, got {tuple(x.shape)} {x.dtype}')
+    if boxes.dim() != 4 or boxes.shape[0] != b or boxes.shape[-1] != 4:
+        raise ValueError(f'boxes must be (B, T, M, 4) with B={b}, got '
+                         f'{tuple(boxes.shape)}')
+    frames = tuple(boxes.shape[:3])
+    for name, x, dtype in (('boxes', boxes, torch.float32),
+                           ('labels', labels, torch.int32),
+                           ('valid', valid, torch.bool)):
+        if x.dtype != dtype or (name != 'boxes'
+                                and tuple(x.shape) != frames):
+            raise ValueError(f'{name}: expected {dtype} over {frames}, got '
+                             f'{x.dtype} {tuple(x.shape)}')
+    tensors = (*table, boxes, labels, valid)
+    if any(x.device != boxes.device for x in tensors):
+        raise ValueError('assign_tracks takes its tensors on one device')
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError('assign_tracks takes contiguous tensors')
+
+
+# The kernel as the custom op `ott_torch::assign_tracks`, so that a traced
+# program (torch.export, `serving.py`) records one call of it for a whole
+# window: the CUDA implementation launches the kernel (ops/cuda/assign.py),
+# the CPU one runs `assign_tracks_plain`, and the fake one gives tracing
+# the outputs' shapes. Registering builds nothing; the kernel builds at
+# its first launch.
+@torch.library.custom_op('ott_torch::assign_tracks', mutates_args=(),
+                         device_types='cuda')
+def assign_tracks_op(
+        boxes: torch.Tensor, vel: torch.Tensor, labels: torch.Tensor,
+        ids: torch.Tensor, age: torch.Tensor, active: torch.Tensor,
+        next_id: torch.Tensor, det_boxes: torch.Tensor,
+        det_labels: torch.Tensor, det_valid: torch.Tensor,
+        iou_threshold: float, max_age: int, vel_smooth: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    table = (boxes, vel, labels, ids, age, active, next_id)
+    _check_assign(table, det_boxes, det_labels, det_valid, iou_threshold)
+    out = cuda_assign.launch(table, det_boxes, det_labels, det_valid,
+                             iou_threshold, max_age, vel_smooth)
+    assign_tracks.launches += 1
+    return out
+
+
+@assign_tracks_op.register_kernel('cpu')
+def _assign_tracks_cpu(boxes, vel, labels, ids, age, active, next_id,
+                       det_boxes, det_labels, det_valid, iou_threshold,
+                       max_age, vel_smooth):
+    table = (boxes, vel, labels, ids, age, active, next_id)
+    _check_assign(table, det_boxes, det_labels, det_valid, iou_threshold)
+    if det_boxes.shape[1] == 0:        # no frame: a copy, never an alias
+        table = tuple(x.clone() for x in table)
+    state, det_ids, matches = assign_tracks_plain(
+        TrackState(*table), det_boxes, det_labels, det_valid,
+        iou_threshold, max_age, vel_smooth)
+    return (*state, det_ids, matches)
+
+
+@assign_tracks_op.register_fake
+def _assign_tracks_fake(boxes, vel, labels, ids, age, active, next_id,
+                        det_boxes, det_labels, det_valid, iou_threshold,
+                        max_age, vel_smooth):
+    table = (boxes, vel, labels, ids, age, active, next_id)
+    _check_assign(table, det_boxes, det_labels, det_valid, iou_threshold)
+    return (*(torch.empty_like(x) for x in table),
+            det_labels.new_empty(det_labels.shape),
+            next_id.new_empty(next_id.shape))
+
+
+def assign_tracks(state: TrackState, boxes: torch.Tensor,
+                  labels: torch.Tensor, valid: torch.Tensor,
+                  iou_threshold: float = TRACK_GATE_IOU, max_age: int = 3,
+                  vel_smooth: float = 0.6
+                  ) -> Tuple[TrackState, torch.Tensor]:
+    """Class-aware, motion-aware greedy track assignment for B clips at
+    once, over one frame (boxes (B, M, 4), labels (B, M), valid (B, M))
+    or a window of T frames in order (boxes (B, T, M, 4), labels and valid
+    (B, T, M)), each frame from the table the frame before left.
+
+    Matches current detections to live tracks by descending IoU against
+    each track's constant-velocity predicted box, assigns fresh ids to
+    unmatched detections (into free slots; when the table is full the
+    excess detections get id -1), ages unmatched tracks — which coast along
+    their velocity — and retires those unseen for > max_age frames.
+
+    Returns (new_state, det_ids (B, M) or (B, T, M) int32 — -1 for invalid
+    detections).
+
+    One call of the custom op `torch.ops.ott_torch.assign_tracks` for the
+    whole window, with a gate in (0, 1]: CUDA tensors launch the kernel
+    (S ≤ 1024 slots, M ≤ 4096 detections; each launch counted in
+    `assign_tracks.launches`) or raise; CPU tensors run
+    `assign_tracks_plain`. Counts (`utils/profiling.count`, with a recorder
+    attached) the frames assigned, B·T, as `assign.frames`, those the
+    kernel assigned as `assign.kernel_frames`, the greedy loop's steps,
+    B·T·min(S, M), as `assign.steps` and the matched detections as
+    `assign.matches`.
+    """
+    window = boxes.dim() == 4
+    if not window:
+        boxes, labels, valid = boxes[:, None], labels[:, None], valid[:, None]
+    b, t, m = boxes.shape[:3]
+    s = state.boxes.shape[1]
+    out = torch.ops.ott_torch.assign_tracks(
+        *(x.contiguous() for x in state), boxes.contiguous(),
+        labels.to(torch.int32).contiguous(), valid.contiguous(),
+        float(iou_threshold), int(max_age), float(vel_smooth))
+    matches = out[8]
+    count('assign.frames', b * t)
+    count('assign.kernel_frames', b * t if boxes.is_cuda else 0)
+    count('assign.steps', b * t * min(s, m))
+    count('assign.matches', lambda: matches.sum())
+    return TrackState(*out[:7]), out[7] if window else out[7][:, 0]
+
+
+assign_tracks.launches = 0
 
 
 def _pairwise_iou_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:

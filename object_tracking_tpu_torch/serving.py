@@ -4,8 +4,8 @@ Port of `object_tracking_tpu/serving.py`. The program
 
     uint8 frames -> /255 on the device -> Darknet-19 + ConvLSTM head ->
     per-frame decode, top-128 cap and greedy NMS -> greedy identity
-    assignment frame by frame -> (padded detections, track ids, carried
-    ConvLSTM and track state)
+    assignment of the window's frames in order -> (padded detections,
+    track ids, carried ConvLSTM and track state)
 
 is captured with `torch.export` with the trained weights baked in, and
 written as one file: a magic, a version, a JSON header and the bytes of
@@ -18,6 +18,9 @@ model class, no config tree, no checkpoint.
   hand-written kernel, on the CPU it runs the kernel's plain twin. JAX
   exports `nms_impl='sort'` instead, since its Pallas kernel lowers for
   the TPU only; the results differ only by the kernels' IoU formula.
+- Identity assignment is likewise one call of the custom op
+  `torch.ops.ott_torch.assign_tracks` for the whole window
+  (`ops/matching.py`, kernel `ops/cuda/csrc/assign_tracks.cu`).
 - BatchNorm normalises with batch statistics (bn_mode 'batch') in
   `eval()` mode, so the graph writes no buffer, as JAX writes no batch
   statistics at serve time; `export_joint` refuses a graph that would.
@@ -84,14 +87,10 @@ class ClipProgram(nn.Module):
         boxes, labels, scores, valid = decode_and_nms(
             out[self.head], self.anchors, obj_threshold=self.obj_threshold,
             nms_threshold=self.nms_threshold, nms_impl='op')
-        tracks = TrackState(*track_state)
-        ids = []
-        for t in range(frames_u8.shape[1]):
-            tracks, ids_t = assign_tracks(
-                tracks, boxes[:, t], labels[:, t], valid[:, t],
-                iou_threshold=self.iou_threshold, max_age=self.max_age)
-            ids.append(ids_t)
-        return ((boxes, labels, scores, valid), torch.stack(ids, dim=1),
+        tracks, ids = assign_tracks(
+            TrackState(*track_state), boxes, labels, valid,
+            iou_threshold=self.iou_threshold, max_age=self.max_age)
+        return ((boxes, labels, scores, valid), ids,
                 float_state(out['state']), tuple(tracks))
 
 

@@ -23,7 +23,8 @@ spans and counters:
 
 The spans are placed in `inference.py` (`predict` and its six parts), in
 `training/steps.py` (`train` and its parts) and the counters in
-`ops/matching.py::assign_tracks` (`assign.steps`, `assign.matches`).
+`ops/matching.py::assign_tracks` (`assign.frames`, `assign.kernel_frames`,
+`assign.steps`, `assign.matches`).
 
 The JAX module's `enable_compile_cache` has no counterpart: the port
 compiles nothing ahead of time but its CUDA kernels, which

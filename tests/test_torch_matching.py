@@ -7,6 +7,11 @@ table, retires tracks by max_age, flips classes and drops detections so
 tracks coast. JAX runs op by op here: under `jax.jit` XLA contracts the
 velocity EMA into a fused multiply-add, and `vel` then differs from the
 port (and from op-by-op JAX) in the last bit.
+
+The window form (boxes (B, T, M, 4), one op call for T frames) equals T
+per-frame calls, and both equal JAX's per-clip, per-frame calls, at B in
+{1, 8} and T in {1, 4}, through a full table, retirements and a frame with
+no valid detection.
 """
 
 import jax.numpy as jnp
@@ -16,6 +21,7 @@ import torch
 
 from object_tracking_tpu.ops import matching as jm
 from object_tracking_tpu_torch.ops import matching as tm
+from test_torch_assign_kernel import sequence
 
 
 def _sequence(rng, frames=10, objects=6, m=8):
@@ -86,6 +92,52 @@ def test_assign_tracks_sequence_matches_jax(rng, max_tracks, max_age):
             saw_minus_one |= bool(((np.asarray(jids) == -1)
                                    & valid[b]).any())
     assert saw_retired and saw_coast
+    if max_tracks == 4:
+        assert saw_full and saw_minus_one
+
+
+@pytest.mark.parametrize('max_tracks,max_age', [(4, 1), (16, 2)])
+@pytest.mark.parametrize('b,t', [(1, 1), (1, 4), (8, 1), (8, 4)])
+def test_window_form_equals_frames_and_jax(b, t, max_tracks, max_age):
+    frames, m = 8, 8
+    boxes, labels, valid = (torch.from_numpy(a) for a in sequence(
+        b * 10 + t, b, frames, m, objects=6, classes=3, blank=(5,)))
+    window = per_frame = tm.init_track_state(max_tracks, b)
+    jstates = [jm.init_track_state(max_tracks) for _ in range(b)]
+    saw_full = saw_minus_one = saw_retired = False
+    for w0 in range(0, frames, t):
+        span = slice(w0, w0 + t)
+        window, wids = tm.assign_tracks(window, boxes[:, span],
+                                        labels[:, span], valid[:, span],
+                                        max_age=max_age)
+        assert tuple(wids.shape) == (b, t, m)
+        for f in range(w0, w0 + t):
+            before = per_frame.active
+            per_frame, fids = tm.assign_tracks(
+                per_frame, boxes[:, f], labels[:, f], valid[:, f],
+                max_age=max_age)
+            np.testing.assert_array_equal(wids[:, f - w0].numpy(),
+                                          fids.numpy(), err_msg=f't={f}')
+            if f == 5:
+                assert (fids == -1).all()
+            for c in range(b):
+                jstates[c], jids = jm.assign_tracks(
+                    jstates[c], jnp.asarray(boxes[c, f].numpy()),
+                    jnp.asarray(labels[c, f].numpy()),
+                    jnp.asarray(valid[c, f].numpy()), max_age=max_age)
+                np.testing.assert_array_equal(fids[c].numpy(),
+                                              np.asarray(jids))
+            saw_full |= bool(per_frame.active.all(dim=1).any())
+            saw_minus_one |= bool(((fids == -1) & valid[:, f]).any())
+            saw_retired |= bool((before & ~per_frame.active).any())
+        got_w, got_f = _to_np(window), _to_np(per_frame)
+        for c in range(b):
+            for name, ref in _to_np(jstates[c]).items():
+                np.testing.assert_array_equal(got_f[name][c], ref,
+                                              err_msg=f'{name} @ t={f}')
+                np.testing.assert_array_equal(got_w[name][c], ref,
+                                              err_msg=f'{name} @ t={f}')
+    assert saw_retired
     if max_tracks == 4:
         assert saw_full and saw_minus_one
 
