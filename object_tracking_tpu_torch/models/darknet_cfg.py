@@ -4,7 +4,7 @@ Port of `object_tracking_tpu/models/darknet_cfg.py`: parse a darknet cfg,
 build a torch module from it, ingest and export the matching `.weights`
 stream in cfg order, decode its heads, and wrap it all in `CfgDetector`.
 
-Supported sections (yolov2, yolov2-tiny and yolov3-style graphs):
+Supported sections (yolov2, yolov2-tiny, yolov3 and yolov4-style graphs):
   [net]            input geometry
   [convolutional]  conv (+optional BN) + leaky/linear/... activation
   [maxpool]        incl. the size-2/stride-1 tiny-yolo edge case
@@ -13,7 +13,18 @@ Supported sections (yolov2, yolov2-tiny and yolov3-style graphs):
   [shortcut]       residual add (yolov3)
   [upsample]       nearest-neighbour ×stride (yolov3)
   [region]         YOLOv2 head marker: anchors in grid-cell units
-  [yolo]           YOLOv3 head marker: masked anchors in input pixels
+  [yolo]           YOLOv3/v4 head marker: masked anchors in input pixels
+
+A [yolo] section's keys fall in three groups (`YOLO_KEYS`):
+- honoured: `mask`, `anchors`, `classes`, `num` and `scale_x_y` (YOLOv4's
+  grid sensitivity, x = (col + s·σ(tx) − (s − 1)/2) / GW, default 1);
+- ignored, training only: `jitter`, `random`, `ignore_thresh`,
+  `truth_thresh`, `iou_thresh`, `iou_loss`, `iou_normalizer`,
+  `cls_normalizer`, `max_delta`;
+- ignored, darknet's own NMS: `nms_kind`, `beta_nms`. The port keeps its
+  own per-class greedy NMS over a top-K cap of the merged candidates.
+Any other key (e.g. `new_coords`) may change what inference returns and
+raises ValueError naming it.
 
 Where a direct translation to torch goes wrong, this follows flax:
 - 'SAME' padding of a conv or a pool pads lo = total // 2 and
@@ -48,6 +59,7 @@ from object_tracking_tpu_torch.ops.decode import decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.weights import (
     DarknetWeightReader, write_darknet_header)
+from object_tracking_tpu_torch.utils.profiling import count, span
 
 
 # --------------------------------------------------------------------------
@@ -90,8 +102,18 @@ def _floats(s: str) -> Tuple[float, ...]:
 #   ('shortcut', idx, activation)
 #   ('upsample', stride)
 #   ('region', anchors, num, classes)     anchors: flat grid-cell units
-#   ('yolo', anchors, classes)            anchors: (w, h) pixel pairs
+#   ('yolo', anchors, classes, scale_x_y) anchors: (w, h) pixel pairs
 LayerPlan = Tuple[Any, ...]
+
+# [yolo] keys: honoured, or ignored because inference does not read them
+YOLO_KEYS = {
+    'honoured': ('mask', 'anchors', 'classes', 'num', 'scale_x_y'),
+    'training': ('jitter', 'random', 'ignore_thresh', 'truth_thresh',
+                 'iou_thresh', 'iou_loss', 'iou_normalizer',
+                 'cls_normalizer', 'max_delta'),
+    'nms': ('nms_kind', 'beta_nms'),
+}
+_YOLO_KNOWN = frozenset(k for keys in YOLO_KEYS.values() for k in keys)
 
 
 def compile_cfg(sections: Sequence[Dict[str, str]]
@@ -132,11 +154,17 @@ def compile_cfg(sections: Sequence[Dict[str, str]]
                          int(sec.get('num', 5)),
                          int(sec.get('classes', 20))))
         elif t == 'yolo':
+            unknown = sorted(set(sec) - {'type'} - _YOLO_KNOWN)
+            if unknown:
+                raise ValueError(
+                    f'[yolo] (index {i}): unsupported key(s) {unknown}; '
+                    'they may change what inference returns')
             mask = _ints(sec.get('mask', ''))
             flat = _floats(sec.get('anchors', ''))
             pairs = tuple(zip(flat[::2], flat[1::2]))
             chosen = tuple(pairs[m] for m in mask) if mask else pairs
-            plan.append(('yolo', chosen, int(sec.get('classes', 80))))
+            plan.append(('yolo', chosen, int(sec.get('classes', 80)),
+                         float(sec.get('scale_x_y', 1.0))))
         else:
             raise ValueError(f'unsupported cfg section [{t}] (index {i})')
     return in_hwc, tuple(plan)
@@ -170,8 +198,8 @@ def plan_shapes(plan: Sequence[LayerPlan], in_hwc: Tuple[int, int, int]
 
 def head_specs(plan: Sequence[LayerPlan]) -> Tuple[Dict[str, Any], ...]:
     """Metadata of each [region]/[yolo] head in plan order: {'kind',
-    'anchors', 'num', 'num_classes'}. Pairs with the same-order `heads`
-    list returned by DarknetCfgNet.forward."""
+    'anchors', 'num', 'num_classes'}, and for [yolo] 'scale_x_y'. Pairs
+    with the same-order `heads` list returned by DarknetCfgNet.forward."""
     specs: List[Dict[str, Any]] = []
     for layer in plan:
         if layer[0] == 'region':
@@ -179,9 +207,10 @@ def head_specs(plan: Sequence[LayerPlan]) -> Tuple[Dict[str, Any], ...]:
             specs.append({'kind': 'region', 'anchors': anchors,
                           'num': num, 'num_classes': classes})
         elif layer[0] == 'yolo':
-            _, anchors, classes = layer
+            _, anchors, classes, scale_x_y = layer
             specs.append({'kind': 'yolo', 'anchors': anchors,
-                          'num': len(anchors), 'num_classes': classes})
+                          'num': len(anchors), 'num_classes': classes,
+                          'scale_x_y': scale_x_y})
     return tuple(specs)
 
 
@@ -398,9 +427,13 @@ def export_weights_for_cfg(variables, cfg_text: str, path: str,
 # --------------------------------------------------------------------------
 def decode_yolo3_netout(netout: torch.Tensor, anchors,
                         net_size: Tuple[int, int],
-                        obj_threshold: float = 0.5):
+                        obj_threshold: float = 0.5,
+                        scale_x_y: float = 1.0):
     """YOLOv3 head decode: sigmoid xy + cell offset, pixel anchors scaled
-    by the net input size, sigmoid (not softmax) class scores.
+    by the net input size, sigmoid (not softmax) class scores. YOLOv4's
+    `scale_x_y` s stretches the offset about the cell's centre:
+    x = (col + s·σ(tx) − (s − 1)/2) / GW, and likewise y (at s = 1,
+    1·σ and a subtracted 0 are exact, so the boxes are v3's bit for bit).
 
     netout (..., GH, GW, A, 5+C) → (boxes (..., GH·GW·A, 4) center-format
     relative, scores (..., GH·GW·A, C) thresholded).
@@ -416,8 +449,9 @@ def decode_yolo3_netout(netout: torch.Tensor, anchors,
 
     col = torch.arange(gw, dtype=torch.float32, device=dev)[None, :, None]
     row = torch.arange(gh, dtype=torch.float32, device=dev)[:, None, None]
-    x = (col + torch.sigmoid(netout[..., 0])) / gw
-    y = (row + torch.sigmoid(netout[..., 1])) / gh
+    half = (scale_x_y - 1.0) / 2.0
+    x = (col + scale_x_y * torch.sigmoid(netout[..., 0]) - half) / gw
+    y = (row + scale_x_y * torch.sigmoid(netout[..., 1]) - half) / gh
     w = anchors[:, 0] * torch.exp(netout[..., 2]) / net_size[1]
     h = anchors[:, 1] * torch.exp(netout[..., 3]) / net_size[0]
     boxes = torch.stack([x, y, w, h], dim=-1).reshape(*lead, -1, 4)
@@ -436,7 +470,10 @@ def decode_cfg_outputs(heads: Sequence[torch.Tensor],
     `heads` is the forward's list of raw (B, GH, GW, A, 5+C) netouts and
     `specs` the matching `head_specs(plan)`. Unlike the JAX function,
     which decodes batch element 0, every batch element is decoded, all in
-    one NMS call.
+    one NMS call. With a `Recorder` attached it counts the candidates
+    whose best class score passes `obj_threshold` before the top-K cap
+    (`detect.candidates`) and the frames in which the cap cut some
+    (`detect.capped`).
 
     Returns (boxes (B, K, 4), labels (B, K), scores (B, K), valid (B, K)).
     """
@@ -446,11 +483,17 @@ def decode_cfg_outputs(heads: Sequence[torch.Tensor],
             b, s = decode_netout(netout, spec['anchors'], obj_threshold)
         else:
             b, s = decode_yolo3_netout(netout, spec['anchors'], net_size,
-                                       obj_threshold)
+                                       obj_threshold, spec['scale_x_y'])
         all_boxes.append(b)
         all_scores.append(s)
-    boxes, scores = greedy_nms_scores(torch.cat(all_boxes, dim=-2),
-                                      torch.cat(all_scores, dim=-2),
+    merged = torch.cat(all_scores, dim=-2)
+
+    def passing():                  # per frame, candidates before the cap
+        return (merged.amax(dim=-1) > obj_threshold).sum(dim=-1)
+    count('detect.candidates', lambda: passing().sum())
+    count('detect.capped', (lambda: (passing() > top_k).sum())
+          if 0 < top_k < merged.shape[-2] else 0)
+    boxes, scores = greedy_nms_scores(torch.cat(all_boxes, dim=-2), merged,
                                       nms_threshold, top_k)
     best = scores.amax(dim=-1)
     return boxes, scores.argmax(dim=-1), best, best > obj_threshold
@@ -537,20 +580,36 @@ class CfgDetector:
         out = self.forward(images)
         return (out['final'],) + self._decode(out['heads'], top_k)
 
+    @torch.no_grad()
     def detect_images(self, images) -> List[List[Tuple]]:
         """images (B, H, W, 3) in [0, 1] at the net size → per image
-        [(label, score, (cx, cy, w, h))], image-relative, by score."""
-        boxes, label_ids, scores, valid = (
-            a.cpu().numpy() for a in self._decode(self.forward(images)
-                                                  ['heads']))
-        out = []
-        for i in range(boxes.shape[0]):
-            dets = [(self.labels[int(l)], float(s),
-                     tuple(float(v) for v in b))
-                    for b, l, s, ok in zip(boxes[i], label_ids[i],
-                                           scores[i], valid[i]) if ok]
-            out.append(sorted(dets, key=lambda d: -d[1]))
-        return out
+        [(label, score, (cx, cy, w, h))], image-relative, by score.
+
+        The call is the span `detect` (`utils/profiling.py`), with
+        `detect.h2d` (the images' copy in), `detect.forward`,
+        `detect.decode_nms`, `detect.fetch` (the copies out, which wait
+        for the device's queued work) and `detect.results` inside."""
+        with span('detect'):
+            with span('detect.h2d'):
+                x = torch.as_tensor(images, dtype=torch.float32,
+                                    device=self.device)
+            with span('detect.forward'):
+                heads = self.module(x, train=False)['heads']
+            with span('detect.decode_nms'):
+                dets = self._decode(heads)
+            with span('detect.fetch'):
+                boxes, label_ids, scores, valid = (a.cpu().numpy()
+                                                   for a in dets)
+            with span('detect.results'):
+                out = []
+                for i in range(boxes.shape[0]):
+                    found = [(self.labels[int(l)], float(s),
+                              tuple(float(v) for v in b))
+                             for b, l, s, ok in zip(boxes[i], label_ids[i],
+                                                    scores[i], valid[i])
+                             if ok]
+                    out.append(sorted(found, key=lambda d: -d[1]))
+                return out
 
     def detect(self, input_path: str):
         """Image path → [(label, score, (cx, cy, w, h))], image-relative."""

@@ -22,9 +22,12 @@ spans and counters:
   and [] on a machine without one.
 
 The spans are placed in `inference.py` (`predict` and its six parts), in
-`training/steps.py` (`train` and its parts) and the counters in
-`ops/matching.py::assign_tracks` (`assign.frames`, `assign.kernel_frames`,
-`assign.steps`, `assign.matches`).
+`models/darknet_cfg.py::CfgDetector.detect_images` (`detect` and its five
+parts), in `training/steps.py` (`train` and its parts) and the counters
+in `ops/matching.py::assign_tracks` (`assign.frames`,
+`assign.kernel_frames`, `assign.steps`, `assign.matches`) and
+`models/darknet_cfg.py::decode_cfg_outputs` (`detect.candidates`,
+`detect.capped`).
 
 The JAX module's `enable_compile_cache` has no counterpart: the port
 compiles nothing ahead of time but its CUDA kernels, which

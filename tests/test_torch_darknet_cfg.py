@@ -39,12 +39,18 @@ DEC_TOL = dict(rtol=0, atol=1e-5)
 
 @pytest.mark.parametrize('name', CFGS)
 def test_parse_compile_and_specs_equal_jax(name):
+    """Equal to JAX's, but that the port's [yolo] plan entries and head
+    specs also carry `scale_x_y`, 1.0 where the cfg leaves it out."""
     text = CFGS[name]
     assert tcfg.parse_darknet_cfg(text) == jcfg.parse_darknet_cfg(text)
     sections = tcfg.parse_darknet_cfg(text)
-    assert tcfg.compile_cfg(sections) == jcfg.compile_cfg(sections)
+    jhwc, jplan = jcfg.compile_cfg(sections)
+    assert tcfg.compile_cfg(sections) == (jhwc, tuple(
+        layer + (1.0,) if layer[0] == 'yolo' else layer for layer in jplan))
     _, plan = tcfg.compile_cfg(sections)
-    assert tcfg.head_specs(plan) == jcfg.head_specs(plan)
+    assert tcfg.head_specs(plan) == tuple(
+        dict(s, scale_x_y=1.0) if s['kind'] == 'yolo' else s
+        for s in jcfg.head_specs(jplan))
 
 
 def test_compile_resolves_negative_routes():
