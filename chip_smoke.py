@@ -28,7 +28,19 @@ JSON line:
    dense, tied frames that take each of its sort branches up to S=1024,
    M=4096: ids and integer fields equal, boxes and vel bit for bit, one
    launch a window; its device time, call time, host cost, the twin's
-   time and the bound;
+   time and the bound. Then mish: the Mish kernel inside YOLOv4
+   (portbench/configs/yolov4_coco_608.cfg, seeded weights, BatchNorm
+   statistics set from the frames) at B=8, 608²: each of the forward's 72
+   Mish calls against the eager chain x·tanh(softplus(x)) on the same
+   input, bit for bit (NaNs in the same places), one launch a call, the
+   counters' engaged share 1; the kernel against the chain on special
+   values (±0, ±inf, NaN, around 20, ±88–90, subnormals) and normals,
+   whole, with a tail and off 16 bytes, in float32 and bfloat16; at each
+   distinct Mish shape its device time under torch.profiler (repeated on
+   one input, so the smaller maps stay in L2) beside its bound, the
+   chain's and F.mish's (library_ms: a yardstick the port never calls),
+   those times summed over the 72 layers, its call time by CUDA events and
+   the wrapper's host cost a call;
 3. path: a JointPredictor at bench.py's model (416², T=4, 12 classes,
    5 anchors, ConvLSTM-512, full width, random weights from a seed)
    serves three streamed predict_batch calls at B=8 and three
@@ -214,6 +226,7 @@ from object_tracking_tpu_torch.models import (
     CfgDetector, Darknet19, MultiObjDetTracker, TinyTracker,
     VGG16PriorSource, YOLOv2Detector)
 from object_tracking_tpu_torch.models.darknet19 import BatchNorm, init_like_flax
+from object_tracking_tpu_torch.models import darknet_cfg
 from object_tracking_tpu_torch.models.darknet_cfg import (
     build_from_cfg, head_grids, head_specs)
 from object_tracking_tpu_torch.ops import matching
@@ -222,6 +235,7 @@ from object_tracking_tpu_torch.ops.boxes import (iou_center,
 from object_tracking_tpu_torch.ops.cuda import _build
 from object_tracking_tpu_torch.ops.cuda import assign as cuda_assign
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
+from object_tracking_tpu_torch.ops.cuda import mish as cuda_mish
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
 from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
@@ -234,6 +248,7 @@ from object_tracking_tpu_torch.training import (
     CheckpointManager, TrainState, fit, make_detector_train_step,
     make_joint_train_step_fused, make_multihead_detector_train_step,
     make_optimizer, make_tiny_eval_step, make_tiny_train_step)
+from object_tracking_tpu_torch.utils.profiling import Recorder, recording
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -755,6 +770,136 @@ def assign_phase(device) -> dict:
             **assign_bound(b, t, s, m)}
     return {'phase': 'assign', 'checks': checks, 'branches': branches,
             'times': times}
+
+
+# ------------------------------------------------------------------- Mish
+YOLOV4_CFG = Path(__file__).resolve().parent / 'portbench' / 'configs' / \
+    'yolov4_coco_608.cfg'
+MISH_BATCH = 8
+
+
+def same_bits_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaNs in the same places (their payloads aside)."""
+    nan = torch.isnan(b)
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (torch.equal(torch.isnan(a), nan) and torch.equal(
+        a.view(as_int)[~nan], b.view(as_int)[~nan]))
+
+
+def mish_specials(dtype, device) -> torch.Tensor:
+    """±0, ±inf, NaN, 20 and its neighbours, where exp overflows (±88–90),
+    subnormals, then seeded normals at scales 1, 6 and 40."""
+    twenty = torch.tensor(20.0)
+    values = torch.tensor(
+        [0.0, -0.0, float('inf'), -float('inf'), float('nan'), 20.0,
+         float(torch.nextafter(twenty, torch.tensor(0.0))),
+         float(torch.nextafter(twenty, torch.tensor(99.0))), -20.0, 88.0,
+         88.72, 88.73, 89.0, 90.0, -88.0, -89.0, -90.0, -104.0, 1e-40,
+         -1e-40, 1.4e-45, -1.4e-45, 1.1754944e-38, 1e-30, -1e-30])
+    rng = np.random.RandomState(31)
+    normals = torch.from_numpy(
+        (rng.randn(3, 100003) * np.array([[1.0], [6.0], [40.0]])).ravel())
+    return torch.cat([values, normals.float()]).to(dtype).to(device)
+
+
+def mish_in_forward(device) -> dict:
+    """YOLOv4 at B=8, 608²: every Mish call of a forward checked against
+    the eager chain on its own input; launches and counters."""
+    model, hwc = build_from_cfg(YOLOV4_CFG.read_text())
+    model = model.to(device).eval()
+    g = torch.Generator(device='cpu').manual_seed(608)
+    images = torch.rand((MISH_BATCH, *hwc), generator=g).to(device)
+    calibrate_bn(model, images)
+    seen = []
+    activate = darknet_cfg._activate
+
+    def checked(x, kind):
+        out = activate(x, kind)
+        if kind == 'mish':
+            seen.append((tuple(x.shape),
+                         same_bits_nan(out, cuda_mish.mish_plain(x)),
+                         int(torch.isnan(out).sum())))
+        return out
+    before = cuda_mish.mish.launches
+    darknet_cfg._activate = checked
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        darknet_cfg._activate = activate
+    launches = cuda_mish.mish.launches - before
+    recorder = Recorder()
+    with torch.no_grad(), recording(recorder):
+        model(images)
+    counters = recorder.reading()['counters']
+    torch.cuda.synchronize()
+    if len(seen) != 72 or launches != 72 or not all(ok for _, ok, _ in seen):
+        raise AssertionError(f'mish in YOLOv4: {len(seen)} calls, '
+                             f'{launches} launches, differing at '
+                             f'{[s for s, ok, _ in seen if not ok]}')
+    share = counters['mish.kernel_elements'] / counters['mish.elements']
+    if share != 1.0:
+        raise AssertionError(f'mish counters: {counters}')
+    shapes: dict = {}
+    for shape, _, _ in seen:
+        shapes[shape] = shapes.get(shape, 0) + 1
+    del model, images
+    return {'calls': len(seen), 'launches_per_forward': launches,
+            'bitwise_equal': True, 'nan_outputs': sum(n for *_, n in seen),
+            'counters': counters, 'engaged_share': share,
+            'shapes': shapes}
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms of one fn() call, summed over every kernel it launches
+    (torch.profiler)."""
+    return sum(ms for _, ms in device_times(fn, iters).values())
+
+
+def mish_phase(device) -> dict:
+    """The Mish kernel against the eager chain inside YOLOv4's forward and
+    on special values; its times at YOLOv4's Mish shapes (module
+    docstring, phase 2)."""
+    forward = mish_in_forward(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    specials = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = mish_specials(dtype, device)
+        for cut, part in (('whole', x), ('tail', x[:-3]),
+                          ('misaligned', x[1:])):
+            ok = same_bits_nan(cuda_mish.mish(part),
+                               cuda_mish.mish_plain(part))
+            specials.append({'dtype': str(dtype), 'cut': cut,
+                             'numel': part.numel(), 'bitwise_equal': ok})
+            if not ok:
+                raise AssertionError(f'mish {dtype} {cut}: differs from '
+                                     f'the eager chain')
+    times, total = {}, {'kernel_ms': 0.0, 'plain_ms': 0.0,
+                        'library_ms': 0.0, 'bound_ms': 0.0}
+    g = torch.Generator(device=device).manual_seed(72)
+    for shape, layers in forward['shapes'].items():
+        x = torch.randn(shape, device=device, generator=g) * 3
+        n = x.numel()
+        row = {'layers': layers, 'elements': n,
+               'kernel_ms': device_ms(lambda: cuda_mish.mish(x), 20),
+               'plain_ms': device_ms(lambda: cuda_mish.mish_plain(x),
+                                     20),
+               'library_ms': device_ms(
+                   lambda: torch.nn.functional.mish(x), 20),
+               'bound_ms': n * 8 / HBM_BYTES_PER_S * 1e3,
+               'call_ms': cuda_ms(lambda: cuda_mish.mish(x), 20),
+               'host_us': host_us(lambda: cuda_mish.mish(x), 50)}
+        row['roofline'] = row['bound_ms'] / row['kernel_ms']
+        times['x'.join(map(str, shape))] = row
+        for key in total:
+            total[key] += layers * row[key]
+        del x
+    total['roofline'] = total['bound_ms'] / total['kernel_ms']
+    forward['shapes'] = {'x'.join(map(str, s)): k
+                         for s, k in forward['shapes'].items()}
+    return {'phase': 'mish', 'forward': forward, 'specials': specials,
+            'times': times, 'per_forward': total}
 
 
 def requests(rng, batch: int, count: int):
@@ -3410,6 +3555,9 @@ def main() -> int:
     assign = assign_phase(device)
     emit({**assign, 'card': smi})
     took('assign')
+    mish = mish_phase(device)
+    emit({**mish, 'card': smi})
+    took('mish')
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
@@ -3543,7 +3691,23 @@ def main() -> int:
         'plain_ms': a8['plain_ms'],
         'bound_ms': a8['bound_ms'], 'bound_by': a8['bound_by'],
         # no installed PyTorch call computes greedy track assignment
-        'library_ms': None}]})
+        'library_ms': None}, {
+        'name': 'mish',
+        'route': 'cuda',
+        'source': 'object_tracking_tpu_torch/ops/cuda/csrc/mish.cu',
+        'replaces': None,
+        'custom_op': 'ott_torch::mish',
+        'shapes': mish['forward']['shapes'],
+        'launches': mish['forward']['launches_per_forward'],
+        'launches_by_path': {'yolov4_forward_b8':
+                             mish['forward']['launches_per_forward']},
+        'max_abs_diff': 0.0,
+        'ms': mish['per_forward']['kernel_ms'],
+        'plain_ms': mish['per_forward']['plain_ms'],
+        'bound_ms': mish['per_forward']['bound_ms'], 'bound_by': 'bytes',
+        # F.mish computes the same function: a yardstick only, the port
+        # never calls it
+        'library_ms': mish['per_forward']['library_ms']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

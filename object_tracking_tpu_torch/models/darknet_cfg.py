@@ -55,6 +55,7 @@ from object_tracking_tpu_torch.convert import from_flax
 from object_tracking_tpu_torch.inference import resolve_device
 from object_tracking_tpu_torch.models.darknet19 import (
     BatchNorm, seeded, space_to_depth)
+from object_tracking_tpu_torch.ops.cuda.mish import mish
 from object_tracking_tpu_torch.ops.decode import decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.weights import (
@@ -242,7 +243,7 @@ def _activate(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ('logistic', 'sigmoid'):
         return torch.sigmoid(x)
     if kind == 'mish':
-        return x * torch.tanh(F.softplus(x))
+        return mish(x)
     raise ValueError(f'unsupported activation {kind!r}')
 
 

@@ -20,6 +20,7 @@ the paper's blocks, not from the `.cfg`).
   nothing without one.
 """
 
+import inspect
 import math
 
 import numpy as np
@@ -30,7 +31,7 @@ from object_tracking_tpu_torch.models import darknet_cfg as tcfg
 from object_tracking_tpu_torch.models.darknet_cfg import CfgDetector
 from object_tracking_tpu_torch.utils import profiling
 from object_tracking_tpu_torch.utils.profiling import Recorder, recording
-from portbench import cells, weights
+from portbench import cells, trace, weights
 from portbench.drivers import detect
 from portbench.models import yolov4 as kind
 from portbench.reference import yolov4 as ref
@@ -274,7 +275,8 @@ def test_detect_records_its_spans_and_counters_with_a_recorder():
     assert all(s.parent == 0 for s in reading['spans'][1:])
     assert reading['counters'] == {
         'detect.candidates': int(passing.sum()),
-        'detect.capped': int((passing > 128).sum())}
+        'detect.capped': int((passing > 128).sum()),
+        'mish.elements': 3 * 16 * 16 * 8, 'mish.kernel_elements': 0}
     assert sum(map(len, out)) <= int(passing.sum())
 
 
@@ -295,3 +297,36 @@ def test_detect_records_nothing_without_a_recorder(monkeypatch):
         traced = det.detect_images(x)
     assert called == ['detect.candidates', 'detect.capped']
     assert traced == plain
+
+
+# ------------------------------------------- the benchmark's Mish spans
+def test_the_benchmarks_mish_wrapper_engages_all_72_layers():
+    """`drivers/detect.py::installed` measures Mish (`detect.mish_ms`,
+    `detect.mish_roofline`) by wrapping `darknet_cfg._activate(x, kind)`,
+    which the forward must still call through the module's name: one
+    `mish` span and note a layer, each note its output's elements, the
+    same elements the program counts."""
+    assert list(inspect.signature(tcfg._activate).parameters) == [
+        'x', 'kind']
+    size, frames = 64, 2
+    cfg = dict(CFG, image=size)
+    torch.manual_seed(0)
+    det = CfgDetector(kind.cfg_text(cfg), labels=cfg['labels'],
+                      device='cpu')
+    plan, shapes = plan_and_shapes(size)
+    want = [frames * h * w * c for layer, (h, w, c) in zip(plan, shapes)
+            if layer[0] == 'conv' and layer[5] == 'mish']
+    tracer, recorder = trace.Tracer(profile=False), Recorder()
+    activate = tcfg._activate
+    x = torch.rand(frames, size, size, 3)
+    with detect.installed(tracer, det), recording(recorder), \
+            torch.no_grad():
+        tracer.start()
+        det.module(x)
+        tracer.stop()
+    assert tcfg._activate is activate
+    assert len(want) == 72 and tracer.notes['mish'] == want
+    assert tracer.host_s['mish'] > 0
+    counters = recorder.reading()['counters']
+    assert counters['mish.elements'] == sum(want)
+    assert counters['mish.kernel_elements'] == 0
