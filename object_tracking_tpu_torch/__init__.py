@@ -13,6 +13,8 @@ imports nothing of it and nothing of JAX. Module layout mirrors it:
   joint and single-object), the synthetic dataset, the dataset converters;
 - `training/`: train state and Adam, train/eval steps, the fit loop,
   callbacks, checkpoints, metric logging;
+- `utils/`: the program's spans and counters (`profiling.py`), and the
+  frames' way in that every serving surface shares (`frames.py`);
 - `convert.py`: flax variables and train states (as numpy) ↔ torch;
 - `inference.py`: `JointPredictor`, the in-process serving entry point;
 - `serving.py`: the clip program exported with torch.export into one

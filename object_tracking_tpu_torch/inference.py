@@ -32,6 +32,8 @@ from object_tracking_tpu_torch.config import TRACK_GATE_IOU
 from object_tracking_tpu_torch.ops.decode import boxes_to_list, decode_and_nms
 from object_tracking_tpu_torch.ops.matching import (
     TrackManager, assign_tracks, init_track_state)
+from object_tracking_tpu_torch.utils.frames import (
+    read_frame, resolve_device, to_device)
 from object_tracking_tpu_torch.utils.profiling import span
 
 
@@ -44,14 +46,12 @@ def float_state(state):
     return tuple(float_state(s) for s in state)
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device(device), refusing a CUDA device this process lacks:
-    the port never falls back to the CPU on its own."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'device {device} requested but CUDA is not '
-                           'available; pass device="cpu" to run on the CPU')
-    return device
+def track_dicts(rows, names: Sequence[str]) -> List[dict]:
+    """`boxes_to_list` rows with ids → the joint surfaces' detection
+    dicts; a label past `names` is named by its index."""
+    return [{'label': names[l] if l < len(names) else str(l),
+             'score': s, 'box': b, 'track_id': int(i)}
+            for l, s, b, i in rows]
 
 
 class JointPredictor:
@@ -129,20 +129,6 @@ class JointPredictor:
                          for a in (boxes, labels, scores, valid))
         return dets, ids, state, track_state
 
-    def _load_window(self, paths: Sequence[str]) -> np.ndarray:
-        import cv2
-        frames = []
-        for p in paths:
-            img = cv2.imread(p)
-            if img is None:
-                raise FileNotFoundError(p)
-            img = cv2.resize(img, (self.net_w, self.net_h))[:, :, ::-1]
-            frames.append(np.asarray(img, np.float32) / 255.0)
-        return np.stack(frames)[None]        # (1, T, H, W, 3)
-
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
-
     def reset_state(self) -> None:
         """Drop the carried ConvLSTM state (and track identities) so the
         next window starts a fresh, independent clip."""
@@ -155,24 +141,15 @@ class JointPredictor:
         """Per-frame detection dicts for one clip's (T, ...) outputs."""
         out = []
         for t in range(boxes.shape[0]):
-            dets = boxes_to_list(boxes[t], labels[t], scores[t], valid[t])
-            if dev_ids is not None:
-                # align ids with the valid filter + stable score sort that
-                # boxes_to_list applies
-                v = valid[t]
-                order = np.argsort(-scores[t][v], kind='stable')
-                ids = list(dev_ids[t][v][order])
-            else:
-                det_boxes = np.asarray([d[2] for d in dets], np.float32) \
-                    if dets else np.zeros((0, 4), np.float32)
-                det_labels = np.asarray([d[0] for d in dets], np.int32) \
-                    if dets else np.zeros((0,), np.int32)
-                ids = self.tracks.update(det_boxes, labels=det_labels)
-            out.append([
-                {'label': self.labels[l] if l < len(self.labels)
-                 else str(l),
-                 'score': s, 'box': b, 'track_id': int(ids[i])}
-                for i, (l, s, b) in enumerate(dets)])
+            rows = boxes_to_list(boxes[t], labels[t], scores[t], valid[t],
+                                 None if dev_ids is None else dev_ids[t])
+            if dev_ids is None:             # the host Hungarian matcher
+                ids = self.tracks.update(
+                    np.asarray([r[2] for r in rows],
+                               np.float32).reshape(-1, 4),
+                    labels=np.asarray([r[0] for r in rows], np.int32))
+                rows = [r + (i,) for r, i in zip(rows, ids)]
+            out.append(track_dicts(rows, self.labels))
         return out
 
     def _zero_state(self, b: int):
@@ -190,7 +167,8 @@ class JointPredictor:
         """
         with span('predict'):
             if isinstance(frames[0], str):
-                x = self._load_window(frames)
+                x = np.stack([read_frame(p, (self.net_h, self.net_w))[1]
+                              for p in frames])[None]
             else:
                 x = np.asarray(frames, np.float32)[None]
             if self._state is None:
@@ -199,7 +177,7 @@ class JointPredictor:
                 self._track_state = init_track_state(self.max_tracks, 1,
                                                      self.device)
             with span('predict.h2d'):
-                images = self._to_device(x)
+                images = to_device(x, self.device)
             dets, ids, self._state, self._track_state = self._run(
                 images, self._state, self._track_state)
             with span('predict.results'):
@@ -236,7 +214,7 @@ class JointPredictor:
                 self._btrack_state = init_track_state(self.max_tracks, b,
                                                       self.device)
             with span('predict.h2d'):
-                images = self._to_device(x)
+                images = to_device(x, self.device)
             dets, ids, self._bstate, self._btrack_state = self._run(
                 images, self._bstate, self._btrack_state)
             with span('predict.results'):

@@ -52,14 +52,16 @@ from torch import nn
 
 from object_tracking_tpu_torch.config import LABELS_COCO
 from object_tracking_tpu_torch.convert import from_flax
-from object_tracking_tpu_torch.inference import resolve_device
 from object_tracking_tpu_torch.models.darknet19 import (
     BatchNorm, seeded, space_to_depth)
 from object_tracking_tpu_torch.ops.cuda.mish import mish
-from object_tracking_tpu_torch.ops.decode import decode_netout
+from object_tracking_tpu_torch.ops.decode import (
+    best_class, decode_netout, named_boxes)
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.weights import (
     DarknetWeightReader, write_darknet_header)
+from object_tracking_tpu_torch.utils.frames import (
+    read_frame, resolve_device, to_device)
 from object_tracking_tpu_torch.utils.profiling import count, span
 
 
@@ -496,8 +498,7 @@ def decode_cfg_outputs(heads: Sequence[torch.Tensor],
           if 0 < top_k < merged.shape[-2] else 0)
     boxes, scores = greedy_nms_scores(torch.cat(all_boxes, dim=-2), merged,
                                       nms_threshold, top_k)
-    best = scores.amax(dim=-1)
-    return boxes, scores.argmax(dim=-1), best, best > obj_threshold
+    return (boxes, *best_class(scores, obj_threshold))
 
 
 # --------------------------------------------------------------------------
@@ -554,8 +555,7 @@ class CfgDetector:
     @torch.no_grad()
     def forward(self, images) -> Dict[str, Any]:
         """images (B, H, W, 3) in [0, 1] → {'heads': [...], 'final': ...}."""
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        return self.module(x, train=False)
+        return self.module(to_device(images, self.device), train=False)
 
     def get_layer_dims(self, layer: str = 'final'
                        ) -> Tuple[int, int, int]:
@@ -592,36 +592,20 @@ class CfgDetector:
         for the device's queued work) and `detect.results` inside."""
         with span('detect'):
             with span('detect.h2d'):
-                x = torch.as_tensor(images, dtype=torch.float32,
-                                    device=self.device)
+                x = to_device(images, self.device)
             with span('detect.forward'):
                 heads = self.module(x, train=False)['heads']
             with span('detect.decode_nms'):
                 dets = self._decode(heads)
             with span('detect.fetch'):
-                boxes, label_ids, scores, valid = (a.cpu().numpy()
-                                                   for a in dets)
+                dets = [a.cpu().numpy() for a in dets]
             with span('detect.results'):
-                out = []
-                for i in range(boxes.shape[0]):
-                    found = [(self.labels[int(l)], float(s),
-                              tuple(float(v) for v in b))
-                             for b, l, s, ok in zip(boxes[i], label_ids[i],
-                                                    scores[i], valid[i])
-                             if ok]
-                    out.append(sorted(found, key=lambda d: -d[1]))
-                return out
+                return named_boxes(dets, self.labels)
 
     def detect(self, input_path: str):
         """Image path → [(label, score, (cx, cy, w, h))], image-relative."""
-        import cv2
-        h, w = self.net_size
-        image = cv2.imread(input_path)
-        if image is None:
-            raise FileNotFoundError(input_path)
-        image = image[:, :, ::-1]
-        x = np.asarray(cv2.resize(image, (w, h)), np.float32)[None] / 255.0
-        return self.detect_images(x)[0]
+        _, x = read_frame(input_path, self.net_size)
+        return self.detect_images(x[None])[0]
 
     def predict(self, input_path: str, output_path: Optional[str] = None):
         """detect + optional box overlay."""

@@ -31,9 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from object_tracking_tpu_torch.convert import from_flax
-from object_tracking_tpu_torch.inference import resolve_device
 from object_tracking_tpu_torch.models.darknet19 import conv, seeded
-from object_tracking_tpu_torch.ops.decode import decode_and_nms
+from object_tracking_tpu_torch.ops.decode import decode_and_nms, named_boxes
+from object_tracking_tpu_torch.utils.frames import (
+    read_frame, resolve_device, to_device)
 
 # (name, features) per conv layer; pools after each block.
 _VGG_PLAN: Tuple[Tuple[str, int], ...] = (
@@ -200,8 +201,7 @@ class VGG16PriorSource:
 
     @torch.no_grad()
     def forward(self, images) -> Dict[str, torch.Tensor]:
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        return self.module(x)
+        return self.module(to_device(images, self.device))
 
     @staticmethod
     def _layer(out: Dict[str, torch.Tensor], layer: str) -> np.ndarray:
@@ -239,20 +239,12 @@ class VGG16PriorSource:
             valid = np.zeros((n, top_k), bool)
         return feats, boxes, labels, scores, valid
 
-    def _named(self, dets) -> List[List[Tuple]]:
-        boxes, labels, scores, valid = dets
-        return [sorted([(self.det_labels[int(l)].lower(), float(s),
-                         tuple(map(float, b)))
-                        for b, l, s, ok in zip(boxes[i], labels[i],
-                                               scores[i], valid[i]) if ok],
-                       key=lambda d: -d[1])
-                for i in range(boxes.shape[0])]
-
     def detect_images(self, images) -> List[List[Tuple]]:
         """The own head's detections of images (B, H, W, 3) in [0, 1] at
         the source's input size: per image [(label, score, (cx, cy, w,
         h))], by score — the body of `detect` on arrays."""
-        return self._named(self._own_detections(self.forward(images), 16))
+        return named_boxes(self._own_detections(self.forward(images), 16),
+                           [l.lower() for l in self.det_labels])
 
     def detect(self, file_path: str,
                class_filter: Optional[Sequence[str]] = None):
@@ -266,17 +258,13 @@ class VGG16PriorSource:
                             class_filter: Optional[Sequence[str]] = None):
         """Detections + feature volume for one image file, both from one
         forward when the detection head is enabled."""
-        import cv2
-        img = cv2.imread(file_path)
-        if img is None:
-            raise FileNotFoundError(file_path)
-        img = cv2.resize(img, (self.image_w, self.image_h))[:, :, ::-1]
-        x = np.asarray(img, np.float32)[None] / 255.0
-        out = self.forward(x)
+        _, x = read_frame(file_path, (self.image_h, self.image_w))
+        out = self.forward(x[None])
         feats = self._layer(out, layer)[0]
         named = []
         if self.det_labels:
-            named = self._named(self._own_detections(out, 16))[0]
+            named = named_boxes(self._own_detections(out, 16),
+                                [l.lower() for l in self.det_labels])[0]
         elif self.delegate is not None and hasattr(self.delegate,
                                                    'extract_spatio_info'):
             named, _ = self.delegate.extract_spatio_info(

@@ -25,21 +25,13 @@ import torch
 
 from object_tracking_tpu_torch.config import DetectorConfig
 from object_tracking_tpu_torch.convert import from_flax
-from object_tracking_tpu_torch.inference import resolve_device
 from object_tracking_tpu_torch.models.darknet19 import Darknet19, seeded
-from object_tracking_tpu_torch.ops.decode import boxes_to_list, decode_and_nms
+from object_tracking_tpu_torch.ops.decode import decode_and_nms, named_boxes
 from object_tracking_tpu_torch.ops.weights import load_yolov2_weights
+from object_tracking_tpu_torch.utils.frames import (
+    read_frame, resolve_device, to_device)
 
 Detection = Tuple[str, float, Tuple[float, ...]]
-
-
-def read_image_rgb(path: str) -> np.ndarray:
-    """An image file as (H, W, 3) uint8 RGB."""
-    import cv2
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img[:, :, ::-1]
 
 
 @torch.no_grad()
@@ -97,15 +89,12 @@ class YOLOv2Detector:
     @torch.no_grad()
     def forward(self, images) -> dict:
         """images (B, H, W, 3) in [0, 1] → {'netout', 'conv_feat'}."""
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        return self.model(x, train=False)
+        return self.model(to_device(images, self.device), train=False)
 
     def _prep(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
-        import cv2
-        cfg = self.config
-        image = read_image_rgb(path)
-        resized = cv2.resize(image, (cfg.image_w, cfg.image_h))
-        return image, np.asarray(resized, np.float32)[None] / 255.0
+        image, x = read_frame(path, (self.config.image_h,
+                                     self.config.image_w))
+        return image, x[None]
 
     def _decode(self, netout: torch.Tensor, top_k: int = 128):
         cfg = self.config
@@ -114,23 +103,13 @@ class YOLOv2Detector:
                               nms_threshold=cfg.nms_threshold, top_k=top_k,
                               nms_impl=self.nms_impl)
 
-    def _named(self, dets, lower: bool = False) -> List[List[Detection]]:
-        """Batched decode results → per image [(label, score, box)]."""
-        boxes, labels, scores, valid = (a.cpu().numpy() for a in dets)
-        out = []
-        for i in range(boxes.shape[0]):
-            found = boxes_to_list(boxes[i], labels[i], scores[i], valid[i])
-            out.append([(self.config.labels[l].lower() if lower
-                         else self.config.labels[l], s, b)
-                        for l, s, b in found])
-        return out
-
     # -- reference-parity API -------------------------------------------
     def detect_images(self, images) -> List[List[Detection]]:
         """The body of `predict` on arrays: images (B, H, W, 3) in [0, 1]
         at the detector's input size → per image [(label, score,
         (cx, cy, w, h))], sorted by score. One forward, one decode+NMS."""
-        return self._named(self._decode(self.forward(images)['netout']))
+        return named_boxes(self._decode(self.forward(images)['netout']),
+                           self.config.labels)
 
     def predict(self, input_path: str, output_path: Optional[str] = None
                 ) -> List[Detection]:
@@ -192,7 +171,8 @@ class YOLOv2Detector:
         image, from one forward."""
         _, x = self._prep(file_path)
         out = self.forward(x)
-        named = self._named(self._decode(out['netout']), lower=True)[0]
+        named = named_boxes(self._decode(out['netout']),
+                            [l.lower() for l in self.config.labels])[0]
         if class_filter is not None:
             allowed = {c.lower() for c in class_filter}
             named = [d for d in named if d[0] in allowed]

@@ -16,7 +16,7 @@ NMS as one (F, N, ·) batch.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,20 +74,44 @@ def decode_and_nms(netout: torch.Tensor, anchors,
                                       scores.reshape(-1, n, c),
                                       nms_threshold, top_k, impl=nms_impl)
     k = boxes.shape[1]
-    boxes = boxes.reshape(*lead, k, 4)
-    scores = scores.reshape(*lead, k, c)
+    return (boxes.reshape(*lead, k, 4),
+            *best_class(scores.reshape(*lead, k, c), obj_threshold))
+
+
+def best_class(scores: torch.Tensor, obj_threshold: float):
+    """NMS'd class scores (..., K, C) → (labels (..., K), the best class;
+    best (..., K), its score; valid (..., K), best > obj_threshold)."""
     labels = scores.argmax(dim=-1)
     best = scores.amax(dim=-1)
-    valid = best > obj_threshold
-    return boxes, labels, best, valid
+    return labels, best, best > obj_threshold
 
 
-def boxes_to_list(boxes, labels, scores, valid) -> List[Tuple]:
-    """Host conversion: padded results → [(label_idx, score,
-    (cx, cy, w, h)), ...] sorted by score (stable on ties)."""
+def _host(a) -> np.ndarray:
+    return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+
+def boxes_to_list(boxes, labels, scores, valid, ids=None) -> List[Tuple]:
+    """Host conversion of one frame's padded results (K rows) → the valid
+    rows as [(label_idx, score, (cx, cy, w, h)), ...], by descending
+    score, stable on ties. With `ids` (K,), each row carries its own id
+    as a fourth field, through the same sort. The one place that orders
+    a frame's detections."""
     boxes, labels, scores, valid = (
-        np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
-        for a in (boxes, labels, scores, valid))
-    out = [(int(l), float(s), tuple(map(float, b)))
-           for b, l, s, v in zip(boxes, labels, scores, valid) if v]
-    return sorted(out, key=lambda r: -r[1])
+        _host(a) for a in (boxes, labels, scores, valid))
+    rows = np.flatnonzero(valid)
+    rows = rows[np.argsort(-scores[rows], kind='stable')]
+    fields = [labels[rows].tolist(), scores[rows].tolist(),
+              map(tuple, boxes[rows].tolist())]
+    if ids is not None:
+        fields.append(_host(ids)[rows].tolist())
+    return list(zip(*fields))
+
+
+def named_boxes(dets, names: Sequence[str]) -> List[List[Tuple]]:
+    """Batched padded results (boxes (B, K, 4), labels, scores, valid
+    (B, K)) → per image [(names[label], score, (cx, cy, w, h))], each
+    image's rows as `boxes_to_list` orders them."""
+    dets = [_host(a) for a in dets]
+    return [[(names[l], s, b)
+             for l, s, b in boxes_to_list(*(a[i] for a in dets))]
+            for i in range(dets[0].shape[0])]

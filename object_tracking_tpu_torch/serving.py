@@ -50,10 +50,11 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 from object_tracking_tpu_torch.config import TRACK_GATE_IOU
-from object_tracking_tpu_torch.inference import float_state, resolve_device
+from object_tracking_tpu_torch.inference import float_state, track_dicts
 from object_tracking_tpu_torch.ops.decode import boxes_to_list, decode_and_nms
 from object_tracking_tpu_torch.ops.matching import (
     TrackState, assign_tracks, init_track_state)
+from object_tracking_tpu_torch.utils.frames import resolve_device
 
 _MAGIC = b'OTTSERVE'
 _VERSION = 1
@@ -290,22 +291,8 @@ class ServedJointPredictor:
         dets, ids, self._state, self._track_state = self.program(
             torch.from_numpy(x).to(self.device), self._state,
             self._track_state)
-        boxes, labels, scores, valid = (a.cpu().numpy() for a in dets)
-        ids = ids.cpu().numpy()
-        out = []
-        for b in range(self.batch):
-            clip = []
-            for t in range(self.window):
-                v = valid[b, t]
-                order = np.argsort(-scores[b, t][v], kind='stable')
-                frame_ids = ids[b, t][v][order]
-                frame_dets = boxes_to_list(boxes[b, t], labels[b, t],
-                                           scores[b, t], v)
-                clip.append([
-                    {'label': self.labels[l] if l < len(self.labels)
-                     else str(l),
-                     'score': s, 'box': bx,
-                     'track_id': int(frame_ids[i])}
-                    for i, (l, s, bx) in enumerate(frame_dets)])
-            out.append(clip)
-        return out
+        host = [a.cpu().numpy() for a in (*dets, ids)]
+        return [[track_dicts(boxes_to_list(*(a[b, t] for a in host)),
+                             self.labels)
+                 for t in range(self.window)]
+                for b in range(self.batch)]

@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from object_tracking_tpu_torch.inference import resolve_device
+from object_tracking_tpu_torch.utils.frames import resolve_device
 
 
 def _common_setup(cfg, workdir: Optional[str] = None, device='cpu'):

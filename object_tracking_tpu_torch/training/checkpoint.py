@@ -90,6 +90,9 @@ class CheckpointManager:
         """Save `state` under `step`; False (and nothing written) when
         `step` is not above the latest saved step."""
         latest = self.latest_step()
+        # Every rank reads the directory before rank 0 writes to it, so
+        # that all take the same branch (and the barrier below) alike.
+        barrier()
         if latest is not None and step <= latest:
             return False
         params = {k: v.detach() for k, v in state.params.items()}

@@ -17,6 +17,7 @@ from object_tracking_tpu_torch.training import (CheckpointManager,
                                                 TrainState, fit,
                                                 make_optimizer)
 from object_tracking_tpu_torch.training.loop import _MetricHistory, _prefetch
+from torch_ranks import late_save_world, run_world
 
 
 # ---------------------------------------------------------------- callbacks
@@ -145,6 +146,15 @@ def test_checkpoint_policies(tmp_path):
     assert not latest.save(5, state) and latest.all_steps() == [4, 5]
     with open(os.path.join(best.directory, 'ckpt_2.json')) as f:
         assert json.load(f) == {'val_loss': 0.1}
+
+
+def test_checkpoint_save_decides_alike_on_every_rank(tmp_path):
+    """A save reads the directory on every rank before rank 0 writes to
+    it: a rank that comes late must not see rank 0's file, skip the save
+    and its barrier, and leave rank 0 waiting there."""
+    ranks = run_world(late_save_world, 2, tmp_path, str(tmp_path / 'ckpt'),
+                      timeout=120)
+    assert ranks == [(True, [1]), (True, [1])]
 
 
 # ---------------------------------------------------------------- logging

@@ -4,8 +4,11 @@
 of one world (a `file://` store under `tmp_path`, so that parallel test
 workers never race for a port), runs `fn(rank, n, *args)` in each and
 returns the n results, in rank order. Each rank sets one intra-op thread.
-A world that outlives its `timeout` is killed and fails the test; a rank
-that raises fails it with the rank's traceback.
+A rank that raises, or exits with a nonzero code, fails the test with its
+traceback: the ranks still running `GRACE_S` seconds later (most often
+waiting on a collective the failed rank never joins) are killed. A world
+whose ranks all run past its `timeout` is killed too, and fails with each
+rank's Python stacks at that moment.
 
 This module imports neither JAX nor the JAX package: the ranks import
 only the port, and hand numpy arrays back to the parent, which holds them
@@ -15,9 +18,12 @@ against JAX. `one_rank_world` is a world of one in this process.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import multiprocessing as mp
+import multiprocessing.connection
 import os
 import pickle
+import signal
 import time
 import traceback
 
@@ -33,6 +39,8 @@ def init_rank(rank: int, n: int, store: str) -> None:
 
 
 def _entry(rank, n, store, out, fn, args):
+    stacks = open(f'{out}.{rank}.stacks', 'w')
+    faulthandler.register(signal.SIGUSR1, file=stacks, all_threads=True)
     try:
         if store:
             init_rank(rank, n, store)
@@ -47,6 +55,33 @@ def _entry(rank, n, store, out, fn, args):
         with open(f'{out}.{rank}', 'wb') as f:
             pickle.dump(('error', traceback.format_exc()), f)
         raise
+
+
+def _outcome(out: str, rank: int, exitcode: int):
+    """('ok', result) or ('error', text) of a rank that has exited."""
+    if not os.path.exists(f'{out}.{rank}'):
+        return 'error', f'exited with code {exitcode} and no result'
+    with open(f'{out}.{rank}', 'rb') as f:
+        return pickle.load(f)
+
+
+def _stacks(procs, out: str) -> str:
+    """The Python stacks of every live rank, each dumped by its own
+    faulthandler on SIGUSR1."""
+    live = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in live:
+        with contextlib.suppress(OSError):
+            os.kill(procs[r].pid, signal.SIGUSR1)
+    time.sleep(2.0)
+    text = []
+    for r in live:
+        path = f'{out}.{r}.stacks'
+        dump = open(path).read() if os.path.exists(path) else 'not started'
+        text.append(f'rank {r}:\n{dump}')
+    return '\n'.join(text)
+
+
+GRACE_S = 30.0          # how long the others may outlive a failed rank
 
 
 def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0,
@@ -64,28 +99,37 @@ def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0,
              for r in range(n)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
+    end = time.monotonic() + timeout
+    failed = []                         # ranks that failed, in exit order
+    while True:
+        live = [p for p in procs if p.is_alive()]
+        left = end - time.monotonic()
+        if not live or left <= 0:
+            break
+        multiprocessing.connection.wait([p.sentinel for p in live], left)
+        for r, p in enumerate(procs):
+            if p.exitcode not in (None, 0) and r not in failed:
+                failed.append(r)
+                end = min(end, time.monotonic() + GRACE_S)
+    stacks = _stacks(procs, out) if not failed and live else ''
+    for p in live:
         p.kill()
         p.join()
-    if alive:
-        raise TimeoutError(f'{fn.__name__}: {len(alive)} of {n} ranks still '
-                           f'running after {timeout} s: killed')
-    results = []
-    for r in range(n):
-        path = f'{out}.{r}'
-        if not os.path.exists(path):
-            raise RuntimeError(f'{fn.__name__}: rank {r} exited with code '
-                               f'{procs[r].exitcode} and no result')
-        with open(path, 'rb') as f:
-            kind, value = pickle.load(f)
+    if failed:
+        errors = [f'rank {r} failed: '
+                  f'{_outcome(out, r, procs[r].exitcode)[1]}' for r in failed]
+        killed = (f'\n{len(live)} of {n} ranks still running {GRACE_S} s '
+                  'after the first failure: killed') if live else ''
+        raise RuntimeError(f'{fn.__name__}: ' + '\n'.join(errors) + killed)
+    if live:
+        raise TimeoutError(f'{fn.__name__}: {len(live)} of {n} ranks still '
+                           f'running after {timeout} s: killed. Their '
+                           f'stacks:\n{stacks}')
+    results = [_outcome(out, r, p.exitcode) for r, p in enumerate(procs)]
+    for r, (kind, value) in enumerate(results):
         if kind == 'error':
-            raise RuntimeError(f'{fn.__name__}: rank {r} failed:\n{value}')
-        results.append(value)
-    return results
+            raise RuntimeError(f'{fn.__name__}: rank {r} failed: {value}')
+    return [value for _, value in results]
 
 
 @contextlib.contextmanager
@@ -105,6 +149,39 @@ def one_rank_world(cfg, tmp_path):
 
 # --------------------------------------------------------------- workers
 # Each runs in every rank of a world and returns numpy arrays.
+
+def raising_world(rank, n, wait: str):
+    """Rank 1 raises at once; every other rank waits for it, in an
+    all-reduce it never joins (`wait='all_reduce'`: gloo sees the peer
+    go) or on a store key it never sets (`'store'`: nothing does)."""
+    if rank == 1:
+        raise ValueError(f'rank 1 gives up at {time.time()!r}')
+    if wait == 'all_reduce':
+        dist.all_reduce(torch.ones(1))
+    else:
+        stuck_world(rank, n)
+
+
+def stuck_world(rank, n):
+    """Waits on a store key that nothing sets."""
+    dist.distributed_c10d._get_default_store().wait(['rank 1 is here'])
+
+
+def late_save_world(rank, n, directory):
+    """Every rank saves step 1 of one small state into one directory, and
+    rank 1 comes to it 3 s late, when rank 0 may long have written it.
+    (What `save` returned, the steps on disk after a barrier.)"""
+    from object_tracking_tpu_torch.training import (
+        CheckpointManager, TrainState, make_optimizer)
+    torch.manual_seed(0)
+    state = TrainState.create(torch.nn.Linear(3, 1), make_optimizer(1e-2))
+    if rank == 1:
+        time.sleep(3.0)
+    manager = CheckpointManager(directory)
+    saved = manager.save(1, state)
+    dist.barrier()
+    return saved, manager.all_steps()
+
 
 def _np(x):
     return x.detach().double().numpy()
