@@ -40,12 +40,24 @@ JSON line:
    one input, so the smaller maps stay in L2) beside its bound, the
    chain's and F.mish's (library_ms: a yardstick the port never calls),
    those times summed over the 72 layers, its call time by CUDA events and
-   the wrapper's host cost a call;
+   the wrapper's host cost a call. Then batch_norm: full-width Darknet-19
+   at B=32, 416², one batch-statistics forward and backward, each of its
+   22 BatchNorms through the kernels (two launcher calls a layer, the
+   counters' engaged share 1) and the layout each input comes in; at each
+   of those 22 inputs the kernels' y, dx, dweight and dbias no further
+   from a float64 reference than max(2 × the plain path's, 1e-6) in
+   relative L2 (F.batch_norm's distance beside), the kernels' forward and
+   backward device time beside the plain path's and F.batch_norm's (a
+   yardstick the port never calls), each with autograd's backward, and
+   the bound (32 B an element), and the forward alone (serving's call)
+   beside its bound (12 B) and its host cost a call;
 3. path: a JointPredictor at bench.py's model (416², T=4, 12 classes,
    5 anchors, ConvLSTM-512, full width, random weights from a seed)
    serves three streamed predict_batch calls at B=8 and three
    predict_window calls at B=1. The NMS and assignment kernels' launch
-   counts must each rise by one per call, and the same calls with
+   counts must each rise by one per call, the BatchNorm kernels' by one
+   per BatchNorm call (bn_mode='batch', the counters' engaged share 1),
+   and the same calls with
    impl='sort' must give identical detections and ids. Then frames/s at
    B=1 and B=8, float32 and bfloat16, each the median of three samples
    (all three kept: these calls are host-bound and spread widely);
@@ -81,7 +93,8 @@ JSON line:
    the CPU parity tests' tolerances; a checkpoint saved after step 2 and
    restored into a fresh state gives step 3 equal to 1e-6 (cuDNN
    deterministic for that check only). At full width: one step under
-   torch.cuda.set_sync_debug_mode('error'); 30 steps on one fixed batch
+   torch.cuda.set_sync_debug_mode('error'), and one whose BatchNorm
+   launches and engaged share (1) are counted; 30 steps on one fixed batch
    (B=1, float32, lr 1e-4) with a finite, falling loss; the trained
    model serves three predict_window calls through JointPredictor, kernel
    1 launching once per call, identical to nms_impl='sort'; then, from
@@ -225,7 +238,8 @@ from object_tracking_tpu_torch.inference import JointPredictor
 from object_tracking_tpu_torch.models import (
     CfgDetector, Darknet19, MultiObjDetTracker, TinyTracker,
     VGG16PriorSource, YOLOv2Detector)
-from object_tracking_tpu_torch.models.darknet19 import BatchNorm, init_like_flax
+from object_tracking_tpu_torch.models.darknet19 import (
+    BatchNorm, init_like_flax, plain_batch_norm)
 from object_tracking_tpu_torch.models import darknet_cfg
 from object_tracking_tpu_torch.models.darknet_cfg import (
     build_from_cfg, head_grids, head_specs)
@@ -234,6 +248,7 @@ from object_tracking_tpu_torch.ops.boxes import (iou_center,
                                                 pairwise_iou_center)
 from object_tracking_tpu_torch.ops.cuda import _build
 from object_tracking_tpu_torch.ops.cuda import assign as cuda_assign
+from object_tracking_tpu_torch.ops.cuda import batch_norm as cuda_bn
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import mish as cuda_mish
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
@@ -310,9 +325,8 @@ def device_times(fn, iters: int, model=None) -> dict:
     {name: [launches per call, device ms per call]}, user annotations
     left out; empty when the profiler recorded no device activity (one
     retry). With `model`, the kernels that its BatchNorm layers launch,
-    in forward and in backward, are keyed 'batch_norm: <name>': the
-    port's BatchNorm is plain tensor ops, whose kernels' names do not say
-    BatchNorm."""
+    in forward and in backward, are keyed 'batch_norm: <name>', whatever
+    the kernels' names (the plain path's do not say BatchNorm)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -902,6 +916,182 @@ def mish_phase(device) -> dict:
             'times': times, 'per_forward': total}
 
 
+BN_BATCH = 32          # the detector step's batch (DetectorConfig)
+BN_EPS = 1e-3
+
+
+def bn_engagement(model, run):
+    """run() with the BatchNorm kernels' launch count set to 0 and a
+    recorder attached: (what run() returns, {'launches': launcher calls,
+    'calls': `model`'s batch-statistics BatchNorm calls, 'engaged_share':
+    `bn.kernel_elements` / `bn.elements`}); raises unless some call ran
+    and the kernels took every element."""
+    calls = [0]
+
+    def note(module, args):
+        calls[0] += bool(args[1])
+    hooks = [m.register_forward_pre_hook(note) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    cuda_bn.batch_norm.launches = 0
+    recorder = Recorder()
+    try:
+        with recording(recorder):
+            out = run()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    counters = recorder.reading()['counters']
+    reading = {'launches': cuda_bn.batch_norm.launches, 'calls': calls[0],
+               'engaged_share': counters.get('bn.kernel_elements', 0)
+               / max(counters.get('bn.elements', 0), 1)}
+    if not calls[0] or reading['engaged_share'] != 1.0:
+        raise AssertionError(f'batch_norm: {reading}, {counters}')
+    return out, reading
+
+
+def batch_norm_in_step(device) -> dict:
+    """Full-width Darknet-19 at B=32, 416², one batch-statistics forward
+    and backward: each BatchNorm input's shape and layout, the kernels'
+    launches and the counters' engaged share."""
+    model = Darknet19().to(device).train()
+    seen = []
+
+    def note(module, args):
+        x = args[0]
+        seen.append((tuple(x.shape), {cuda_bn.PLANES: 'planes',
+                                      cuda_bn.ROWS: 'rows'}.get(
+                                          cuda_bn.layout_of(x), 'strided')))
+    hooks = [m.register_forward_pre_hook(note) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    g = torch.Generator(device='cpu').manual_seed(32)
+    images = torch.rand((BN_BATCH, NET, NET, 3), generator=g).to(device)
+    try:
+        _, reading = bn_engagement(model, lambda: model(
+            images, train=True)['netout'].square().mean().backward())
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(seen) != 22 or reading['launches'] != 44:
+        raise AssertionError(f'batch_norm in Darknet-19: {len(seen)} '
+                             f'calls, {reading}')
+    del model, images
+    return {'launches_per_step': reading['launches'], **reading,
+            'inputs': seen}
+
+
+def bn_agreement(x, dy, w, b) -> dict:
+    """The kernels', the plain path's and F.batch_norm's (y, dx, dweight,
+    dbias) on x under dy, each as its relative L2 distance from the plain
+    expression in float64 on the same inputs, and the kernels' largest
+    absolute difference from it; raises where the kernels lie further than
+    max(2 × the plain path's distance, 1e-6), as the card tests hold."""
+    def run(fn, *args):
+        args = [t.detach().clone().requires_grad_() for t in args]
+        y = fn(*args)
+        return (y.detach(), *torch.autograd.grad(y, args, dy.to(y.dtype)))
+    want = run(lambda *a: plain_batch_norm(*a, BN_EPS)[0],
+               x.double(), w.double(), b.double())
+    got = {'kernels': run(lambda *a: cuda_bn.batch_norm(*a, BN_EPS)[0],
+                          x, w, b),
+           'plain': run(lambda *a: plain_batch_norm(*a, BN_EPS)[0],
+                        x, w, b),
+           'library': run(lambda t, u, v: torch.nn.functional.batch_norm(
+               t, None, None, u, v, training=True, eps=BN_EPS), x, w, b)}
+    names = ('y', 'dx', 'dweight', 'dbias')
+    rel = {path: {n: float((a.double() - r).norm() / r.norm())
+                  for n, a, r in zip(names, out, want)}
+           for path, out in got.items()}
+    diff = max(float((a.double() - r).abs().max())
+               for a, r in zip(got['kernels'], want))
+    far = [n for n in names
+           if rel['kernels'][n] > max(2 * rel['plain'][n], 1e-6)]
+    if far:
+        raise AssertionError(f'batch_norm at {tuple(x.shape)}: {far} '
+                             f'further from float64 than the plain path, '
+                             f'{rel}')
+    return {'rel_l2': rel, 'max_abs_diff': diff}
+
+
+def batch_norm_phase(device) -> dict:
+    """The BatchNorm kernels in a Darknet-19 B=32 step (layouts,
+    launches, counters), then at each of its 22 BatchNorm inputs, in the
+    layout the step gives it: the kernels' y, dx, dweight and dbias held
+    to a float64 reference beside the plain path's and F.batch_norm's;
+    device ms of the kernels' forward and backward beside the plain
+    path's and F.batch_norm's (a yardstick the port never calls: the same
+    biased batch variance, each with autograd's backward) and the bound
+    (32 B an element at 3.35 TB/s, x and dy read twice from HBM); and of
+    the kernels' forward alone (serving's call) beside its bound (12 B)
+    and its host cost a call."""
+    step = batch_norm_in_step(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(22)
+    rows, total = [], {'kernel_ms': 0.0, 'plain_ms': 0.0,
+                       'library_ms': 0.0, 'bound_ms': 0.0,
+                       'forward_ms': 0.0, 'forward_bound_ms': 0.0}
+    for shape, layout in step['inputs']:
+        fmt = (torch.channels_last if layout == 'rows'
+               else torch.contiguous_format)
+        c = shape[1]
+        # per-channel offsets up to 3 and scales 0.1-2.1, as after a conv
+        x = (torch.randn(shape, device=device, generator=g)
+             * (torch.rand(c, 1, 1, device=device, generator=g) * 2 + 0.1)
+             + torch.randn(c, 1, 1, device=device, generator=g)
+             ).contiguous(memory_format=fmt)
+        dy = torch.randn(shape, device=device, generator=g
+                         ).contiguous(memory_format=fmt)
+        w = torch.rand(c, device=device, generator=g) + 0.5
+        b = torch.randn(c, device=device, generator=g) * 0.1
+        agreement = bn_agreement(x, dy, w, b)
+        gc.collect()
+        torch.cuda.empty_cache()
+        x.requires_grad_()
+        w.requires_grad_()
+        b.requires_grad_()
+
+        def kernels():
+            y = cuda_bn.batch_norm(x, w, b, BN_EPS)[0]
+            torch.autograd.grad(y, (x, w, b), dy)
+
+        def plain():
+            y = plain_batch_norm(x, w, b, BN_EPS)[0]
+            torch.autograd.grad(y, (x, w, b), dy)
+
+        def library():
+            y = torch.nn.functional.batch_norm(x, None, None, w, b,
+                                               training=True, eps=BN_EPS)
+            torch.autograd.grad(y, (x, w, b), dy)
+
+        def forward():
+            with torch.no_grad():
+                cuda_bn.batch_norm(x, w, b, BN_EPS)
+        n = x.numel()
+        row = {'shape': 'x'.join(map(str, shape)), 'layout': layout,
+               **agreement,
+               'kernel_ms': device_ms(kernels, 10),
+               'plain_ms': device_ms(plain, 10),
+               'library_ms': device_ms(library, 10),
+               'bound_ms': n * 32 / HBM_BYTES_PER_S * 1e3,
+               'forward_ms': device_ms(forward, 10),
+               'forward_bound_ms': n * 12 / HBM_BYTES_PER_S * 1e3,
+               'host_us': host_us(forward, 50)}
+        row['roofline'] = row['bound_ms'] / row['kernel_ms']
+        rows.append(row)
+        for key in total:
+            total[key] += row[key]
+        del x, dy
+    total['roofline'] = total['bound_ms'] / total['kernel_ms']
+    total['forward_roofline'] = (total['forward_bound_ms']
+                                 / total['forward_ms'])
+    total['max_abs_diff'] = max(r['max_abs_diff'] for r in rows)
+    step['inputs'] = [f'{"x".join(map(str, s))} {lay}'
+                      for s, lay in step['inputs']]
+    return {'phase': 'batch_norm', 'step': step, 'times': rows,
+            'per_step': total}
+
+
 def requests(rng, batch: int, count: int):
     return [rng.rand(batch, T, NET, NET, 3).astype(np.float32)
             for _ in range(count)]
@@ -1040,13 +1230,16 @@ def path_phase(device, smi: str) -> dict:
     kernel_pred = JointPredictor(model, YOLOV2_ANCHORS, **kwargs)
     cuda_nms.nms_scores.launches = 0
     matching.assign_tracks.launches = 0
-    results, calls = serve(kernel_pred, batch_reqs, window_reqs)
+    (results, calls), bn = bn_engagement(
+        model, lambda: serve(kernel_pred, batch_reqs, window_reqs))
     launches = cuda_nms.nms_scores.launches
     assigned = matching.assign_tracks.launches
     if launches != calls or assigned != calls:
         raise AssertionError(f'nms_scores launched {launches} times and '
                              f'assign_tracks {assigned} times in {calls} '
                              f'predict calls')
+    if bn['launches'] != bn['calls']:       # no gradient: one a BatchNorm
+        raise AssertionError(f'batch_norm in {calls} predict calls: {bn}')
     sort_pred = JointPredictor(model, YOLOV2_ANCHORS, nms_impl='sort',
                                **kwargs)
     sort_results, _ = serve(sort_pred, batch_reqs, window_reqs)
@@ -1076,7 +1269,8 @@ def path_phase(device, smi: str) -> dict:
             'anchors': 5, 'convlstm_features': 512, 'width_div': 1,
             'obj_threshold': obj_threshold, 'nms_probe': probe,
             'predict_calls': calls, 'nms_launches': launches,
-            'assign_launches': assigned, 'kernel_equals_sort': True,
+            'assign_launches': assigned, 'bn_launches': bn,
+            'kernel_equals_sort': True,
             **summary, **rates, 'card': smi}, profiles
 
 
@@ -1604,6 +1798,9 @@ def train_phase(device, smi: str):
         try:
             if i == 0:
                 (_, metrics), first_ms = timed(lambda: step(state, fixed))
+            elif i == 2:
+                (_, metrics), bn = bn_engagement(
+                    state.model, lambda: step(state, fixed))
             else:
                 _, metrics = step(state, fixed)
         finally:
@@ -1645,7 +1842,7 @@ def train_phase(device, smi: str):
             'max_boxes': MAX_BOXES, 'lr': TRAIN_LR, 'readings_lr': 0.0,
             'augment': True,
             'card_vs_cpu': parity, 'checkpoint': round_trip,
-            'sync_debug_step': 'no sync raised',
+            'sync_debug_step': 'no sync raised', 'bn_launches': bn,
             'loss_trajectory': trajectory,
             'loss_first5_mean': first5, 'loss_last5_mean': last5,
             'readings': readings, 'serve': serve_out, 'card': smi}, weights
@@ -3558,6 +3755,9 @@ def main() -> int:
     mish = mish_phase(device)
     emit({**mish, 'card': smi})
     took('mish')
+    bn = batch_norm_phase(device)
+    emit({**bn, 'card': smi})
+    took('batch_norm')
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
@@ -3623,6 +3823,9 @@ def main() -> int:
     dn_f8 = dn['times']['f8']
     k1 = kern['times'][f'32x128x{NUM_CLASSES}']
     a8 = assign['times']['b8']
+    bn_launches = {'darknet19_step_b32': bn['step']['launches_per_step'],
+                   'joint_path': path['bn_launches']['launches'],
+                   'joint_train_step': train['bn_launches']['launches']}
     assign_launches = {
         'assign_phase': sum(c['launches'] for c in assign['checks']),
         'assign_branches': sum(c['launches'] for c in assign['branches']),
@@ -3707,7 +3910,23 @@ def main() -> int:
         'bound_ms': mish['per_forward']['bound_ms'], 'bound_by': 'bytes',
         # F.mish computes the same function: a yardstick only, the port
         # never calls it
-        'library_ms': mish['per_forward']['library_ms']}]})
+        'library_ms': mish['per_forward']['library_ms']}, {
+        'name': 'batch_norm',
+        'route': 'cuda',
+        'source': 'object_tracking_tpu_torch/ops/cuda/csrc/batch_norm.cu',
+        'replaces': None,
+        'custom_op': 'ott_torch::batch_norm_stats',
+        'shapes': bn['step']['inputs'],
+        'launches': sum(bn_launches.values()),
+        'launches_by_path': bn_launches,
+        'max_abs_diff': bn['per_step']['max_abs_diff'],
+        'ms': bn['per_step']['kernel_ms'],
+        'plain_ms': bn['per_step']['plain_ms'],
+        'bound_ms': bn['per_step']['bound_ms'], 'bound_by': 'bytes',
+        # F.batch_norm(training=True) gives the same y and gradients up to
+        # rounding (the biased batch variance; no clip on these inputs): a
+        # yardstick only, the port never calls it
+        'library_ms': bn['per_step']['library_ms']}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

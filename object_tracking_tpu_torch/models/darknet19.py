@@ -29,11 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_tracking_tpu_torch.ops.cuda import batch_norm as cuda_batch_norm
 from object_tracking_tpu_torch.parallel.collectives import (
     all_reduce_sum, group_size)
 from object_tracking_tpu_torch.parallel.mesh import in_whole_batch
 from object_tracking_tpu_torch.parallel.sharding import (
     column_conv, column_operands, held)
+from object_tracking_tpu_torch.utils.profiling import count
 
 
 def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -101,6 +103,34 @@ def init_like_flax(module: nn.Module, seed: int) -> nn.Module:
     return seeded(seed, build)
 
 
+def plain_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float, group=None):
+    """flax's batch statistics and the normalised x as plain tensor ops:
+    (y, mean, var). The mean and E[x²] − E[x]², clipped at 0, reduced in
+    float32 (float64 for a float64 x) and differentiated through both,
+    summed over the data `group` if one is given; y is
+    (x − mean)·rsqrt(var + eps)·weight + bias in x's dtype, one
+    `F.batch_norm` on those statistics when no gradient is wanted. What
+    `BatchNorm` runs where the kernels cannot take x."""
+    dims = (0, 2, 3)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if group is None:
+        mean = xf.mean(dim=dims)
+        sq = torch.square(xf).mean(dim=dims)
+    else:
+        total = xf.numel() // xf.shape[1] * group_size(group)
+        sums = all_reduce_sum(torch.stack(
+            [xf.sum(dim=dims), torch.square(xf).sum(dim=dims)]), group)
+        mean, sq = sums[0] / total, sums[1] / total
+    var = torch.clamp_min(sq - torch.square(mean), 0.0)
+    if not torch.is_grad_enabled():
+        return (F.batch_norm(x, mean, var, weight, bias, training=False,
+                             eps=eps), mean, var)
+    mul = torch.rsqrt(var + eps) * weight
+    y = (x - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    return y.to(x.dtype), mean, var
+
+
 class BatchNorm(nn.Module):
     """BatchNorm as flax computes it, with its epsilon and momentum.
 
@@ -119,6 +149,15 @@ class BatchNorm(nn.Module):
     nor `SyncBatchNorm` (an unbiased variance in the running statistics)
     computes that. Inside `parallel.mesh.whole_batch()` the group is
     left out: every rank holds the whole batch.
+
+    On a float32 or bfloat16 CUDA tensor the batch statistics go through
+    the hand-written kernels (`ops/cuda/batch_norm.py::batch_norm`: the
+    same statistics from float64 sums, forward and backward in two passes
+    each, the group's all-reduce between them); every other tensor runs
+    the plain expression, `plain_batch_norm`. Each batch-statistics call
+    on a CUDA tensor counts its elements as `bn.elements` and those the
+    kernels took as `bn.kernel_elements` (`utils/profiling.count`); a CPU
+    call, which no kernel can take, counts nothing.
     """
 
     momentum = 0.99
@@ -138,30 +177,29 @@ class BatchNorm(nn.Module):
         if not batch_stats:
             mean, var = self.running_mean, self.running_var
         else:
-            dims = (0, 2, 3)
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            engaged = cuda_batch_norm.engages(x)
+            if x.is_cuda:
+                count('bn.elements', x.numel())
+                count('bn.kernel_elements', x.numel() if engaged else 0)
             group = None if in_whole_batch() else self.group
-            if group is None:
-                mean = xf.mean(dim=dims)
-                sq = torch.square(xf).mean(dim=dims)
+            if engaged:
+                y, stats = cuda_batch_norm.batch_norm(x, weight, bias,
+                                                      self.eps, group)
+                mean, var = stats[0], stats[1]
             else:
-                count = xf.numel() // xf.shape[1] * group_size(group)
-                sums = all_reduce_sum(torch.stack(
-                    [xf.sum(dim=dims), torch.square(xf).sum(dim=dims)]),
-                    group)
-                mean, sq = sums[0] / count, sums[1] / count
-            var = torch.clamp_min(sq - torch.square(mean), 0.0)
-            if self.training:
-                with torch.no_grad():
-                    self.running_mean.lerp_(mean, 1.0 - self.momentum)
-                    self.running_var.lerp_(var, 1.0 - self.momentum)
-            if torch.is_grad_enabled():
-                mul = torch.rsqrt(var + self.eps) * weight
-                y = ((x - mean[:, None, None]) * mul[:, None, None]
-                     + bias[:, None, None])
-                return y.to(x.dtype)
+                y, mean, var = plain_batch_norm(x, weight, bias, self.eps,
+                                                group)
+            self._fold(mean, var)
+            return y
         return F.batch_norm(x, mean, var, weight, bias, training=False,
                             eps=self.eps)
+
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The batch statistics into the running ones, in `train()` mode."""
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, 1.0 - self.momentum)
+                self.running_var.lerp_(var, 1.0 - self.momentum)
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:

@@ -24,6 +24,9 @@ model class, no config tree, no checkpoint.
 - BatchNorm normalises with batch statistics (bn_mode 'batch') in
   `eval()` mode, so the graph writes no buffer, as JAX writes no batch
   statistics at serve time; `export_joint` refuses a graph that would.
+  Traced on a card, each BatchNorm is one call of the custom op
+  `torch.ops.ott_torch.batch_norm_stats` (`ops/cuda/batch_norm.py`),
+  which this module registers, so a reload needs no model class either.
   The artifact holds the traced graph (torch.export's training IR), whose
   ops are those the eager model calls.
 - JAX's artifact lowers for several platforms (`platforms=('tpu',
@@ -51,6 +54,8 @@ from torch.export.passes import move_to_device_pass
 
 from object_tracking_tpu_torch.config import TRACK_GATE_IOU
 from object_tracking_tpu_torch.inference import float_state, track_dicts
+# registers ott_torch::batch_norm_*, which a graph traced on a card holds
+from object_tracking_tpu_torch.ops.cuda import batch_norm  # noqa: F401
 from object_tracking_tpu_torch.ops.decode import boxes_to_list, decode_and_nms
 from object_tracking_tpu_torch.ops.matching import (
     TrackState, assign_tracks, init_track_state)

@@ -877,3 +877,27 @@ def dp_world(rank, n, cases):
     """Every case of `cases` over a data axis of n ranks (dp_two_steps)."""
     mesh = _mesh(n, 1)
     return {name: dp_two_steps(case, mesh) for name, case in cases.items()}
+
+
+def bn_group_world(rank, n, x, dy, weight, bias, device, dtype='float32'):
+    """One training call of the batch-statistics BatchNorm entry
+    (`ops/cuda/batch_norm.py::batch_norm`) on this rank's share of the
+    channels_last batch x (rank r of n takes the r-th of n equal parts),
+    the world its data group when n > 1, on 'cpu' (the ops' twins) or on
+    'cuda' (cuda:0 for every rank): y, stats, dx, dweight, dbias."""
+    from object_tracking_tpu_torch.ops.cuda import batch_norm as cbn
+    dev = torch.device('cuda', 0) if device == 'cuda' else torch.device('cpu')
+    per = x.shape[0] // n
+    part = slice(rank * per, (rank + 1) * per)
+
+    def put(a, dt=getattr(torch, dtype)):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    xs = put(x[part]).contiguous(memory_format=torch.channels_last)
+    dys = put(dy[part]).contiguous(memory_format=torch.channels_last)
+    w, b = (put(a, torch.float32).requires_grad_() for a in (weight, bias))
+    xs.requires_grad_()
+    group = dist.group.WORLD if n > 1 else None
+    y, stats = cbn.batch_norm(xs, w, b, 1e-3, group)
+    dx, dw, db = torch.autograd.grad(y, (xs, w, b), dys)
+    out = {'y': y, 'stats': stats, 'dx': dx, 'dweight': dw, 'dbias': db}
+    return {k: v.detach().float().cpu().numpy() for k, v in out.items()}
