@@ -17,8 +17,10 @@ JSON line:
    path's shape (F=32 frames = B·T at B=8, T=4; K=128; C=12), at the
    full 13x13x5 lattice K=845, at the 19x19x5 lattice K=1805 and at
    each shape the paths give it ((32,128,12), (4,128,12), (8,16,80),
-   (1,128,80), (16,16,80)); the two must agree exactly (max_abs_diff == 0) and
-   suppress something. At each path shape, its device time under
+   (1,128,80), (16,16,80)) and Faster R-CNN's two ((8,6000,1) with ranked
+   scores at IoU 0.7, (160,300,1) at 0.3); the two must agree exactly
+   (max_abs_diff == 0) and suppress something. At each path shape, its
+   device time under
    torch.profiler, summed over its two passes (mask, walk) and split by
    pass, its call time by CUDA events, the wrapper's host cost per call
    (host_us, beside torch_launch_us, the host cost of one plain torch
@@ -50,7 +52,18 @@ JSON line:
    backward device time beside the plain path's and F.batch_norm's (a
    yardstick the port never calls), each with autograd's backward, and
    the bound (32 B an element), and the forward alone (serving's call)
-   beside its bound (12 B) and its host cost a call;
+   beside its bound (12 B) and its host cost a call. Then rcnn: Faster
+   R-CNN VGG16 (21 VOC classes, the benchmark cell's draw: trunk and
+   fc6/fc7 sqrt(1 / fan_in), the RPN and cls_score 0.01, bbox_pred 0.001)
+   serves one detect_images call of 8 seeded 562x1000 scenes with a
+   recorder attached: kernel 1 launches twice (the proposal NMS, the
+   per-class NMS) and the RoI-pooling kernel once, counted from that
+   call, and the counters' engaged share is 1; each of those three
+   launches' own inputs through the kernel and its plain twin on the
+   card, bit for bit (NaNs in the same places); on those inputs each
+   kernel's device time under torch.profiler, its call time, host cost,
+   the twin's time and the bound (RoI pooling: the output written and
+   conv5_3 read once, at 3.35 TB/s);
 3. path: a JointPredictor at bench.py's model (416², T=4, 12 classes,
    5 anchors, ConvLSTM-512, full width, random weights from a seed)
    serves three streamed predict_batch calls at B=8 and three
@@ -243,7 +256,10 @@ from object_tracking_tpu_torch.models.darknet19 import (
 from object_tracking_tpu_torch.models import darknet_cfg
 from object_tracking_tpu_torch.models.darknet_cfg import (
     build_from_cfg, head_grids, head_specs)
+from object_tracking_tpu_torch.models.faster_rcnn import (
+    FasterRCNN, FasterRCNNDetector)
 from object_tracking_tpu_torch.ops import matching
+from object_tracking_tpu_torch.ops import nms as ops_nms
 from object_tracking_tpu_torch.ops.boxes import (iou_center,
                                                 pairwise_iou_center)
 from object_tracking_tpu_torch.ops.cuda import _build
@@ -252,6 +268,7 @@ from object_tracking_tpu_torch.ops.cuda import batch_norm as cuda_bn
 from object_tracking_tpu_torch.ops.cuda import decode_nms as cuda_dn
 from object_tracking_tpu_torch.ops.cuda import mish as cuda_mish
 from object_tracking_tpu_torch.ops.cuda import nms as cuda_nms
+from object_tracking_tpu_torch.ops.cuda import roi_pool as cuda_roi
 from object_tracking_tpu_torch.ops.decode import decode_and_nms, decode_netout
 from object_tracking_tpu_torch.ops.nms import greedy_nms_scores
 from object_tracking_tpu_torch.ops.targets import (
@@ -517,21 +534,49 @@ NMS_PATH_SHAPES = ((32, 128, NUM_CLASSES), (4, 128, NUM_CLASSES), (8, 16, 80),
                    (1, 128, 80), (16, 16, 80))
 
 
-def check_nms(b, s, dead_frame: bool):
+# (frames, K, C, IoU threshold) of kernel 1 in Faster R-CNN's call
+# (models/faster_rcnn.py at B=8): the proposal NMS over each image's top
+# 6,000 (its rank as the score) and the per-class NMS over 8 x 20 (image,
+# class) pseudo-frames of 300 RoIs
+RCNN_NMS_SHAPES = ((8, 6000, 1, 0.7), (160, 300, 1, 0.3))
+
+
+def check_nms(b, s, dead_frame: bool, thr: float = NMS_THRESHOLD):
     """Kernel 1 against its plain twin on the same card tensors: exact,
     something suppressed, and frame 0 all zero where it was made dead.
     Returns the kernel's output and the check's record."""
     frames, k, c = s.shape
-    out = cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
-    plain = cuda_nms.nms_scores_plain(b, s, NMS_THRESHOLD)
+    out = cuda_nms.nms_scores(b, s, thr)
+    plain = cuda_nms.nms_scores_plain(b, s, thr)
     torch.cuda.synchronize()
     diff = (out - plain).abs().max().item()
     suppressed = int(((s > 0) & (out == 0)).sum())
     if diff != 0 or suppressed == 0 or (dead_frame and out[0].any()):
         raise AssertionError(f'nms_scores F={frames} K={k} C={c}: '
                              f'max_abs_diff={diff}, suppressed={suppressed}')
-    return out, {'frames': frames, 'k': k, 'classes': c, 'max_abs_diff': diff,
-                 'live': int((s > 0).sum()), 'suppressed': suppressed}
+    return out, {'frames': frames, 'k': k, 'classes': c, 'threshold': thr,
+                 'max_abs_diff': diff, 'live': int((s > 0).sum()),
+                 'suppressed': suppressed}
+
+
+def nms_times(b, s, out, thr: float, plain_iters: int = 10) -> dict:
+    """Kernel 1 on (b, s): its device time by pass, call time, host cost,
+    the plain twin's time and the bound."""
+    frames, k, c = s.shape
+
+    def call():
+        return cuda_nms.nms_scores(b, s, thr)
+    return {
+        # the kernel's own device time, summed over its passes; the event
+        # times span back-to-back wrapper calls and include the host's
+        # launch gaps
+        'device': op_device_ms(call, 'nms_scores', 50),
+        'call_ms': cuda_ms(call, iters=200, warmup=10),
+        # the wrapper's host cost: plan, allocations, two launches
+        'host_us': host_us(call, 500),
+        'plain_ms': cuda_ms(lambda: cuda_nms.nms_scores_plain(b, s, thr),
+                            iters=plain_iters, warmup=min(3, plain_iters)),
+        **nms_bound(out, k, c, frames)}
 
 
 def kernel_phase(device) -> dict:
@@ -552,20 +597,17 @@ def kernel_phase(device) -> dict:
         s = torch.from_numpy(scores).to(device)
         out, check = check_nms(b, s, dead_frame=False)
         checks.append(check)
-
-        def call(b=b, s=s):
-            return cuda_nms.nms_scores(b, s, NMS_THRESHOLD)
-        times[f'{frames}x{k}x{c}'] = {
-            # the kernel's own device time, summed over its passes; the
-            # event times span 200 back-to-back wrapper calls and include
-            # the host's launch gaps
-            'device': op_device_ms(call, 'nms_scores', 50),
-            'call_ms': cuda_ms(call, iters=200, warmup=10),
-            # the wrapper's host cost: plan, allocations, two launches
-            'host_us': host_us(call, 500),
-            'plain_ms': cuda_ms(lambda b=b, s=s: cuda_nms.nms_scores_plain(
-                b, s, NMS_THRESHOLD), iters=10),
-            **nms_bound(out, k, c, frames)}
+        times[f'{frames}x{k}x{c}'] = nms_times(b, s, out, NMS_THRESHOLD)
+    for frames, k, c, thr in RCNN_NMS_SHAPES:
+        boxes, scores = candidates(rng, frames, k, c, dead_frame=False)
+        if k > 1000:        # the proposal NMS: ranked, its rank the score
+            rank = np.arange(k, 0, -1, dtype=np.float32)[None, :, None]
+            scores = np.where(scores > 0, rank, np.float32(0.0))
+        b = torch.from_numpy(boxes).to(device)
+        s = torch.from_numpy(scores).to(device)
+        out, check = check_nms(b, s, dead_frame=False, thr=thr)
+        checks.append(check)
+        times[f'{frames}x{k}x{c}'] = nms_times(b, s, out, thr, plain_iters=2)
     # the yardstick for host_us: one launch of a one-op torch kernel
     x = torch.zeros(16, device=device)
     return {'checks': checks, 'times': times,
@@ -1090,6 +1132,128 @@ def batch_norm_phase(device) -> dict:
                       for s, lay in step['inputs']]
     return {'phase': 'batch_norm', 'step': step, 'times': rows,
             'per_step': total}
+
+
+RCNN_BATCH = 8
+RCNN_HW = (562, 1000)   # py-faster-rcnn's test scale of a 1920x1080 frame
+RCNN_STD = {'rpn_conv': 0.01, 'rpn_cls_score': 0.01, 'rpn_bbox_pred': 0.01,
+            'cls_score': 0.01, 'bbox_pred': 0.001}
+
+
+def rcnn_module(device, seed: int) -> FasterRCNN:
+    """Full-width Faster R-CNN VGG16 with the benchmark cell's draw: each
+    weight a normal of std RCNN_STD[layer], else sqrt(1 / fan_in) (the
+    trunk, fc6, fc7); biases 0."""
+    module = FasterRCNN().to(device).eval()
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, layer in module.named_children():
+            w = layer.weight
+            std = RCNN_STD.get(name, (1.0 / w[0].numel()) ** 0.5)
+            w.copy_(torch.randn(w.shape, generator=g, device=device) * std)
+            layer.bias.zero_()
+    return module
+
+
+def rcnn_frames(seed: int) -> np.ndarray:
+    """RCNN_BATCH frames (B, 562, 1000, 3) in [0, 1]: dark noise with 8
+    filled rectangles each, as the benchmark cell's scenes."""
+    rng = np.random.RandomState(seed)
+    h, w = RCNN_HW
+    frames = rng.randint(0, 60, (RCNN_BATCH, h, w, 3)).astype(np.uint8)
+    for image in frames:
+        for _ in range(8):
+            bw, bh = rng.randint(w // 16, w // 3), rng.randint(h // 16, h // 3)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            image[y:y + bh, x:x + bw] = rng.randint(80, 256, 3)
+    return frames.astype(np.float32) / np.float32(255.0)
+
+
+def rcnn_call(det, frames) -> dict:
+    """One detect_images call with a recorder attached: the inputs of
+    each kernel-1 launch and of the RoI pooling, the launches of each
+    kernel counted from this call, and the counters."""
+    module = det.module
+    seen = {'nms': [], 'pool': []}
+    nms, pool = ops_nms.nms_scores, module.pool
+
+    def nms_kept(boxes, scores, thr):
+        seen['nms'].append((boxes, scores, thr))
+        return nms(boxes, scores, thr)
+
+    def pool_kept(conv5, rois):
+        seen['pool'].append((conv5, rois))
+        return pool(conv5, rois)
+    launches = (cuda_nms.nms_scores.launches, cuda_roi.roi_pool.launches)
+    recorder = Recorder()
+    ops_nms.nms_scores, module.pool = nms_kept, pool_kept
+    try:
+        with recording(recorder):
+            dets = det.detect_images(frames)
+        torch.cuda.synchronize()
+    finally:
+        ops_nms.nms_scores = nms
+        del module.pool
+    return {'seen': seen, 'dets': dets,
+            'counters': recorder.reading()['counters'],
+            'nms_launches': cuda_nms.nms_scores.launches - launches[0],
+            'roi_pool_launches': cuda_roi.roi_pool.launches - launches[1]}
+
+
+def rcnn_phase(device) -> dict:
+    """Faster R-CNN VGG16 at B=8, 562x1000: its call's launches and
+    counters, and kernel 1 and the RoI-pooling kernel on that call's own
+    inputs against their twins, with their times (module docstring,
+    phase 2)."""
+    det = FasterRCNNDetector(device=device, module=rcnn_module(device, 22))
+    frames = rcnn_frames(22)
+    det.detect_images(frames)       # cuDNN's choices, the kernels' builds
+    call = rcnn_call(det, frames)
+    counters = call['counters']
+    share = (counters.get('roi_pool.kernel_rois', 0)
+             / max(counters.get('roi_pool.rois', 0), 1))
+    if (call['nms_launches'] != 2 or call['roi_pool_launches'] != 1
+            or len(call['seen']['pool']) != 1 or share != 1.0):
+        raise AssertionError(f'rcnn call: {call["nms_launches"]} kernel-1 '
+                             f'and {call["roi_pool_launches"]} RoI-pooling '
+                             f'launches, counters {counters}')
+    nms_rows = {}
+    for (b, s, thr), name in zip(call['seen']['nms'],
+                                 ('proposal_nms', 'class_nms')):
+        out, check = check_nms(b, s, dead_frame=False, thr=thr)
+        nms_rows[name] = {**check, **nms_times(b, s, out, thr,
+                                                plain_iters=2)}
+    conv5, rois = call['seen']['pool'][0]
+    got = cuda_roi.roi_pool(conv5, rois, 1 / 16)
+    want = cuda_roi.roi_pool_plain(conv5, rois, 1 / 16)
+    if not same_bits_nan(got, want):
+        raise AssertionError('roi_pool: the kernel differs from its twin on '
+                             'the call\'s conv5_3 and RoIs')
+    n_rois, c = rois.shape[0] * rois.shape[1], conv5.shape[1]
+    bins = got.shape[-2] * got.shape[-1]
+    # the RoIs' mean size in map cells, which sets the window each reads
+    edges = cuda_roi.c_round(rois / 16)
+    size = (edges[..., 2:] - edges[..., :2] + 1).clamp_min(1)
+
+    def pooled():
+        return cuda_roi.roi_pool(conv5, rois, 1 / 16)
+    roi = {'rois': n_rois, 'map': 'x'.join(map(str, conv5.shape)),
+           'cells_wh_mean': size.reshape(-1, 2).mean(0).tolist(),
+           'bitwise_equal': True,
+           'kernel_ms': op_device_ms(pooled, 'roi_pool', 20)['ms'],
+           'call_ms': cuda_ms(pooled, 20),
+           'host_us': host_us(pooled, 50),
+           'plain_ms': cuda_ms(lambda: cuda_roi.roi_pool_plain(
+               conv5, rois, 1 / 16), iters=2, warmup=1),
+           'bound_ms': (n_rois * c * bins + conv5.numel()) * 4
+           / HBM_BYTES_PER_S * 1e3}
+    roi['roofline'] = roi['bound_ms'] / roi['kernel_ms']
+    detections = sum(len(d) for d in call['dets'])
+    del det, call, conv5, rois, got, want, edges, size
+    return {'phase': 'rcnn', 'batch': RCNN_BATCH, 'image_hw': RCNN_HW,
+            'nms_launches': 2, 'roi_pool_launches': 1,
+            'counters': counters, 'engaged_share': share,
+            'detections': detections, 'roi_pool': roi, 'nms': nms_rows}
 
 
 def requests(rng, batch: int, count: int):
@@ -3758,6 +3922,13 @@ def main() -> int:
     bn = batch_norm_phase(device)
     emit({**bn, 'card': smi})
     took('batch_norm')
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcnn = rcnn_phase(device)
+    emit({**rcnn, 'card': smi})
+    took('rcnn')
+    gc.collect()
+    torch.cuda.empty_cache()
     path, profiles = path_phase(device, smi)
     emit(path)
     emit({'phase': 'profile', 'per_call': profiles, 'card': smi})
@@ -3810,7 +3981,8 @@ def main() -> int:
                     'moe_head_predict':
                         parallel['moe_predict']['nms_launches'],
                     'tensor_parallel_serve': tp['serve']['nms_launches'],
-                    **dp['nms_launches']}
+                    **dp['nms_launches'],
+                    'frcnn_detect_images': rcnn['nms_launches']}
     not_driven = {}
     if native['available']:
         nms_launches['native_decode_golden'] = \
@@ -3850,6 +4022,9 @@ def main() -> int:
         'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
         'ms_by_shape': {shape: t['device']['ms']
                         for shape, t in kern['times'].items()},
+        # on the inputs of Faster R-CNN's own call (the rcnn phase)
+        'ms_in_rcnn_call': {name: t['device']['ms']
+                            for name, t in rcnn['nms'].items()},
         # no installed PyTorch call computes per-class greedy NMS over a
         # score matrix (torchvision's batched_nms is not installed, and it
         # is single-label hard NMS)
@@ -3926,7 +4101,25 @@ def main() -> int:
         # F.batch_norm(training=True) gives the same y and gradients up to
         # rounding (the biased batch variance; no clip on these inputs): a
         # yardstick only, the port never calls it
-        'library_ms': bn['per_step']['library_ms']}]})
+        'library_ms': bn['per_step']['library_ms']}, {
+        'name': 'roi_pool',
+        'route': 'cuda',
+        'source': 'object_tracking_tpu_torch/ops/cuda/csrc/roi_pool.cu',
+        'replaces': None,
+        'custom_op': 'ott_torch::roi_pool',
+        'shapes': {'map': rcnn['roi_pool']['map'],
+                   'rois': rcnn['roi_pool']['rois']},
+        'launches': rcnn['roi_pool_launches'],
+        'launches_by_path': {'frcnn_detect_images':
+                             rcnn['roi_pool_launches']},
+        'max_abs_diff': 0.0,
+        'ms': rcnn['roi_pool']['kernel_ms'],
+        'call_ms': rcnn['roi_pool']['call_ms'],
+        'host_us': rcnn['roi_pool']['host_us'],
+        'plain_ms': rcnn['roi_pool']['plain_ms'],
+        'bound_ms': rcnn['roi_pool']['bound_ms'], 'bound_by': 'bytes',
+        # no installed PyTorch call pools RoIs (torchvision is absent)
+        'library_ms': None}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

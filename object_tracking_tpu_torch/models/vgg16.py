@@ -50,6 +50,31 @@ _BLOCK_ENDS = frozenset(('conv1_2', 'conv2_2', 'conv3_3', 'conv4_3'))
 VGG_DET_ANCHOR = (2.0, 2.0)
 
 
+def add_vgg_convs(module: nn.Module, width_div: int = 1) -> int:
+    """Add the 13 3x3 conv layers of `_VGG_PLAN` to `module` under their
+    names, each width divided by `width_div` (floor 4 channels); returns
+    conv5_3's width."""
+    cin = 3
+    for name, feats in _VGG_PLAN:
+        width = max(feats // width_div, 4)
+        module.add_module(name, nn.Conv2d(cin, width, 3))
+        cin = width
+    return cin
+
+
+def vgg_trunk(module: nn.Module, x: torch.Tensor,
+              ceil_mode: bool = False) -> torch.Tensor:
+    """`module`'s 13 VGG convs with ReLU over x (B, 3, H, W), a 2x2
+    stride-2 max pool after each of the first four blocks → conv5_3. With
+    `ceil_mode` the pools keep a last odd row and column (Caffe's pooling:
+    562 → 281 → 141 → 71 → 36)."""
+    for name, _ in _VGG_PLAN:
+        x = F.relu(conv(x, getattr(module, name)))
+        if name in _BLOCK_ENDS:
+            x = F.max_pool2d(x, 2, 2, ceil_mode=ceil_mode)
+    return x
+
+
 class VGG16(nn.Module):
     """VGG16 backbone: conv5_3, pool5 and a global fc7 vector, and the
     dense detection head when `det_classes > 0`. `width_div` divides
@@ -63,11 +88,7 @@ class VGG16(nn.Module):
         self.det_classes = det_classes
         self.dtype = dtype
         self.width_div = width_div
-        cin = 3
-        for name, feats in _VGG_PLAN:
-            width = max(feats // width_div, 4)
-            self.add_module(name, nn.Conv2d(cin, width, 3))
-            cin = width
+        cin = add_vgg_convs(self, width_div)
         self.fc6 = nn.Conv2d(cin, fc_features, 7)
         self.fc7 = nn.Conv2d(fc_features, fc_features, 1)
         if det_classes:
@@ -76,11 +97,7 @@ class VGG16(nn.Module):
     def _convs(self, images: torch.Tensor):
         """images (B, H, W, 3) → (conv5_3, pool5), NCHW in the compute
         type."""
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        for name, _ in _VGG_PLAN:
-            x = F.relu(conv(x, getattr(self, name)))
-            if name in _BLOCK_ENDS:
-                x = F.max_pool2d(x, 2, 2)
+        x = vgg_trunk(self, images.permute(0, 3, 1, 2).to(self.dtype))
         return x, F.max_pool2d(x, 2, 2)
 
     def _det_netout(self, pool5: torch.Tensor) -> torch.Tensor:

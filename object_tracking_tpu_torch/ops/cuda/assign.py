@@ -31,7 +31,7 @@ from object_tracking_tpu_torch.ops.cuda.nms import SMEM_LIMIT
 # The kernel's own constants (csrc/assign_tracks.cu;
 # tests/test_torch_assign_kernel.py holds these copies equal to them)
 MAX_SLOTS = 1024      # kMaxSlots: track slots S a clip
-MAX_DETS = 4096       # kMaxDets: detections M a frame (NMS's MAX_K)
+MAX_DETS = 4096       # kMaxDets: detections M a frame
 MAX_THREADS = 1024    # kMaxThreads
 MISC = 64             # kMisc: ints of scan and frame scalars
 POINTERS = 20         # kPointers: the launcher's pointer arguments

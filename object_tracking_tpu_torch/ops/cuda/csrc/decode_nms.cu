@@ -149,7 +149,7 @@ decode_nms_walk(const float* scores_in, float* scores,
 
 // Returns the cudaError_t of the launches (0 = launched). The plan
 // arguments come from ops/cuda/decode_nms.py::launch_plan; N = GH*GW*A
-// must be <= 4096 and C >= 1.
+// must be <= 8192 and C >= 1.
 extern "C" int decode_nms_launch(const float* netout, const float* anchors,
                                  float* boxes, float* scores, uint32_t* mask,
                                  int F, int GH, int GW, int A, int C,

@@ -49,7 +49,11 @@
 // thread before it stores any (kBatch).
 //
 // The cap: `removed`, `kept` and the keys live in shared memory, sized for
-// N, so one warp takes any N up to kMaxN = 4096 (26x26x5 = 3380 at 832^2).
+// N, so one warp takes any N up to kMaxN = 8192: Faster R-CNN's proposal
+// NMS takes 6,000 candidates a frame (models/faster_rcnn.py). At 8192 the
+// mask pass holds 160 KB of box corners and one class's walk 98 KB (keys
+// 64 KB); the bitmask is 8 MB a frame, in device memory. Above 128 keys
+// the sort is a bitonic network, ~91 rounds of the warp at 8192.
 //
 // Exactness: the IoU is the Pallas formula inter / max(union, 1e-12) in
 // explicitly rounded operations, built with -fmad=false, with min/max that
@@ -64,7 +68,7 @@
 
 namespace nms {
 
-constexpr int kMaxN = 4096;          // candidates per frame
+constexpr int kMaxN = 8192;          // candidates per frame
 constexpr int kMaskThreads = 256;    // mask pass: 8 warps a block
 constexpr int kMaxWalkWarps = 8;     // walk pass: at most 8 classes a block
 constexpr size_t kMaxSmem = 232448;  // 227 KB, what a block may opt into

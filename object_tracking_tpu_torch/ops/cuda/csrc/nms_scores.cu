@@ -49,7 +49,7 @@ nms_scores_walk(const float* scores, float* out,
 }  // namespace
 
 // Returns the cudaError_t of the launches (0 = launched). The plan
-// arguments come from ops/cuda/nms.py::launch_plan; K must be <= 4096.
+// arguments come from ops/cuda/nms.py::launch_plan; K must be <= 8192.
 extern "C" int nms_scores_launch(const float* boxes, const float* scores,
                                  float* out, uint32_t* mask, int F, int K,
                                  int C, float thr, int mask_rows,

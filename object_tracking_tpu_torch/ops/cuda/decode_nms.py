@@ -132,7 +132,7 @@ def decode_nms_fused(netout: torch.Tensor, anchors,
     netout ([F,] GH, GW, A, 5+C), cast to contiguous float32; anchors
     (A·2,) or (A, 2) in grid-cell units → (boxes ([F,] N, 4) center-format
     relative, scores ([F,] N, C) with suppressed scores zeroed),
-    N = GH·GW·A ≤ MAX_N = 4096 on CUDA. Candidate k is (row·GW + col)·A + a.
+    N = GH·GW·A ≤ MAX_N = 8192 on CUDA. Candidate k is (row·GW + col)·A + a.
     """
     if netout.dim() not in (4, 5):
         raise ValueError(f'netout must be ([F,] GH, GW, A, 5+C), got '

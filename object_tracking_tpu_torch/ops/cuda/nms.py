@@ -30,7 +30,7 @@ import torch
 
 # The kernels' own constants (csrc/nms_common.cuh; tests/test_torch_nms_scan.py
 # holds these copies equal to them)
-MAX_K = 4096          # kMaxN: candidates per frame the kernels take
+MAX_K = 8192          # kMaxN: candidates per frame the kernels take
 SMEM_LIMIT = 232448   # kMaxSmem: shared memory a block may opt into (227 KB)
 MASK_THREADS = 256    # kMaskThreads: mask pass, 8 warps a block
 MAX_WALK_CLASSES = 8  # kMaxWalkWarps: walk pass, a warp per class, 8 a block

@@ -23,11 +23,15 @@ spans and counters:
 
 The spans are placed in `inference.py` (`predict` and its six parts), in
 `models/darknet_cfg.py::CfgDetector.detect_images` (`detect` and its five
-parts), in `training/steps.py` (`train` and its parts) and the counters
-in `ops/matching.py::assign_tracks` (`assign.frames`,
-`assign.kernel_frames`, `assign.steps`, `assign.matches`) and
+parts), in `models/faster_rcnn.py` (`detect` and the same five parts, with
+`detect.proposals`, `detect.roi_pool` and `detect.box_head` inside
+`detect.forward`), in `training/steps.py` (`train` and its parts) and the
+counters in `ops/matching.py::assign_tracks` (`assign.frames`,
+`assign.kernel_frames`, `assign.steps`, `assign.matches`),
 `models/darknet_cfg.py::decode_cfg_outputs` (`detect.candidates`,
-`detect.capped`).
+`detect.capped`), `ops/proposals.py` (`rcnn.pre_nms`, `rcnn.proposals`,
+`rcnn.short_images`, `rcnn.detections`, `rcnn.capped`) and
+`ops/cuda/roi_pool.py` (`roi_pool.rois`, `roi_pool.kernel_rois`).
 
 The JAX module's `enable_compile_cache` has no counterpart: the port
 compiles nothing ahead of time but its CUDA kernels, which

@@ -204,9 +204,13 @@ PATH_SHAPES = [
     (8, 845, 80),     # the full 13x13x5 lattice
     (1, 845, 80),
     (8, 1805, 80),    # 19x19x5, 608^2
-    (1, 4096, 80),    # the cap
+    (1, 4096, 80),
     (64, 4096, 1),
     (3, 4096, 7),
+    (8, 6000, 1),     # Faster R-CNN's proposal NMS, B=8
+    (160, 300, 1),    # its per-class NMS: 8 images x 20 classes
+    (1, 8192, 80),    # the cap
+    (8, 8192, 1),
 ]
 
 
@@ -289,11 +293,11 @@ def test_launch_plan_is_cached_per_shape():
 
 
 def test_plans_raise_above_the_cap():
-    assert cuda_nms.MAX_K == cuda_dn.MAX_N == 4096
-    with pytest.raises(ValueError, match='at most 4096'):
-        cuda_nms.launch_plan(1, 4097, 3)
-    with pytest.raises(ValueError, match='at most 4096'):
-        cuda_dn.launch_plan(1, 4097, 3)
+    assert cuda_nms.MAX_K == cuda_dn.MAX_N == 8192
+    with pytest.raises(ValueError, match='at most 8192'):
+        cuda_nms.launch_plan(1, 8193, 3)
+    with pytest.raises(ValueError, match='at most 8192'):
+        cuda_dn.launch_plan(1, 8193, 3)
 
 
 def test_mask_rows_shrink_for_few_frames():
